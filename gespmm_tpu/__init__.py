@@ -1,4 +1,4 @@
-"""gespmm_tpu — a TPU-native sparse linear-algebra framework.
+"""gespmm_tpu — sparse linear algebra for graph learning, in JAX, on GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 GE-SpMM (hgyhungry/ge-spmm, SC'20): CSR SpMM with sum/max/mean reduction
@@ -10,7 +10,7 @@ SpMM on a `jax.sharding.Mesh`.
 
 Layering (bottom-up):
     sparse/    formats (CSR/COO pytrees), .mtx ingest, tile planner
-    kernels/   Pallas TPU kernels (SpMM, SDDMM)
+    kernels/   Pallas-Triton CSR SpMM kernel; slot-layout compositions
     ops/       jittable primitives with custom VJPs + dispatch heuristics
     parallel/  mesh construction, distributed SpMM, sharded train steps
     models/    GCN, GraphSAGE (pure-functional modules)

@@ -7,7 +7,7 @@ differentiable-edge-value path the reference explicitly lacks
 (`pytorch-custom/op.py:22-27`).  CLI and reporting mirror
 `bench/gcn_bench.py` (≙ `dgl-custom/benchmark/gcn/gcn_dgl.py:205-225`).
 
-Run:  python -m gespmm_tpu.bench.gat_bench --dataset pubmed --n-hidden 64
+Run:  python -m gespmm_tpu.bench.gat_bench --dataset cl169343-14 --n-hidden 64
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import json
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--dataset", default="pubmed",
+    p.add_argument("--dataset", default="cl169343-14",
                    help="bundled graph name, .mtx path, or 'sbm'")
     p.add_argument("--n-hidden", type=int, default=64)
     p.add_argument("--n-heads", type=int, default=1)

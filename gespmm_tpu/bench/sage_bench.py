@@ -16,7 +16,7 @@ import json
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--dataset", default="pubmed")
+    p.add_argument("--dataset", default="cl169343-14")
     p.add_argument("--n-hidden", type=int, default=16)
     p.add_argument("--n-layers", type=int, default=2)
     p.add_argument("--n-epochs", type=int, default=200)

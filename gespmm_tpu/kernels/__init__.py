@@ -1,16 +1,8 @@
-"""Pallas TPU kernels — the hand-tiled compute tier.
+"""Hand-written kernels and the compositions that share their layouts.
 
-Availability probes let the op-layer dispatch (`ops/spmm.py`,
-`ops/sddmm.py`) fall back to the XLA formulation when a kernel is not
-implemented for the requested configuration — the same role the cuSPARSE
-fallback plays in the reference (`binary_reduce_sum.cu:365-398`).
+`spmm_csr` is the one-pass CSR SpMM in Pallas through Triton (GPU);
+`spmm_stream` is the tiled slot-layout SpMM with an XLA segment reduce;
+`gat_fused` composes the attention chain over that slot layout.  The op
+layer (`ops/spmm.py`) chooses among them and the plain XLA formulation in
+`ops/reference.py`.
 """
-
-
-def spmm_kernel_available() -> bool:
-    try:
-        from gespmm_tpu.kernels import spmm_pallas  # noqa: F401
-
-        return True
-    except Exception:
-        return False

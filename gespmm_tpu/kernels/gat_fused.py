@@ -1,16 +1,14 @@
 """Fused slot-space GAT attention: logits -> softmax -> weighted SpMM.
 
-Round-2 measured the GAT epoch wall at 26.9 ms on pubmed — dominated not
-by FLOPs but by the edge chain's *layout churn*: every op (additive
-logits, leaky-relu, edge softmax, alpha-weighted SpMM) exchanged
-nnz-length arrays in CSR order, so each stream-kernel pass paid a
-CSR->slot permute on entry (~6 ns/edge scatter/gather), plus separate
-max / normalizer / aggregate passes.
+The unfused composition (additive logits, leaky-relu, edge softmax,
+alpha-weighted SpMM) exchanges nnz-length arrays in CSR order, so each
+slot-order reduction pays a CSR->slot permute on entry, plus separate max /
+normalizer / aggregate passes.
 
 This module computes the ENTIRE attention layer in the tiled plan's slot
 order; per-edge quantities are only ever *materialized* in slot space,
 and the few node-space arrays (row max, denominator, rowdot) are small
-(m x 1).  Two stream passes forward:
+(m x 1).  Two slot-order reductions forward:
 
   1. row max   m_r   = max_e leaky(src[r_e] + dst[c_e])     (K=1 reduce)
   2. aggregate [out_w | d]_r = sum_e z_e * [B[c_e] | 1]     (K+1 reduce)
@@ -43,8 +41,6 @@ import jax
 import jax.numpy as jnp
 
 from gespmm_tpu.kernels.spmm_stream import (
-    _fit_kt,
-    _pad_cols,
     _part_rows_slice,
     _reduce_part,
     _slot_rows,
@@ -73,35 +69,17 @@ def _dleaky(x, slope):
     return jnp.where(x >= 0, 1.0, slope)
 
 
-def _pad2(X: Array) -> Array:
-    """Single-column slot-gather tables hit XLA's 1-D gather path, which
-    measures ~4.5x slower than any >=2-column table (7.2 vs 1.6 ns/slot
-    on v5e, scripts/gat_probe3.py) — pad (m, 1) tables to (m, 2)."""
-    if X.shape[1] != 1:
-        return X
-    return jnp.concatenate([X, jnp.zeros_like(X)], axis=1)
-
-
 def _slot_pre(part, src_pad, dst_pad):
-    """Per-slot pre-activation logits src[r_e] + dst[c_e], both gathers
-    hitting VMEM-sized tables (src sliced per part, dst per column
-    tile).  (S, H) f32."""
-    H = src_pad.shape[1]
+    """Per-slot pre-activation logits src[r_e] + dst[c_e] (src sliced per
+    part, dst per column tile).  (S, H) f32."""
     s_slot = jnp.take(
-        _part_rows_slice(part, _pad2(src_pad)), _slot_rows(part), axis=0
-    )[:, :H]
-    d_slot = _tile_gather(part, _pad2(dst_pad))[:, :H]
+        _part_rows_slice(part, src_pad), _slot_rows(part), axis=0
+    )
+    d_slot = _tile_gather(part, dst_pad)
     return s_slot + d_slot
 
 
-def _row_pad(X: Array, rows: int) -> Array:
-    if X.shape[0] >= rows:
-        return X[:rows]
-    return jnp.pad(X, ((0, rows - X.shape[0]),) + ((0, 0),) * (X.ndim - 1))
-
-
-def _forward(plan, src2, dst2, B, slope, interpret, max_mode="exact",
-             heads=1, mode="trilo"):
+def _forward(plan, src2, dst2, B, slope, max_mode="exact", heads=1):
     """Head-batched forward: src2/dst2 are (m, H)/(n, H), B is
     (n, H*dh) in head blocks.  One K=H max pass + one (H*dh + H)-wide
     aggregate whose last H columns are the per-head denominators."""
@@ -123,13 +101,13 @@ def _forward(plan, src2, dst2, B, slope, interpret, max_mode="exact",
         # ~80 (f32 exp headroom; trained attention scores are O(10)).
         mx = _leaky(src_pad + jnp.max(dst_pad, axis=0), slope)
     else:
-        # Pass 1: per-row logit max (K=H stream).
+        # Pass 1: per-row logit max (K=H reduction).
         mx_parts = []
         for part in plan.parts:
             l = _leaky(_slot_pre(part, src_pad, dst_pad), slope)
             mp = _reduce_part(
                 l, part.local_rows, part.row_start, part.m_pad,
-                part.rows_per_block, H, "trilo", interpret, op="max", fold=getattr(part, "fold", 1))
+                part.rows_per_block, op="max")
             mx_parts.append(mp[: part.m_part])
         mx = (mx_parts[0] if len(mx_parts) == 1
               else jnp.concatenate(mx_parts, 0))[:m]
@@ -138,11 +116,8 @@ def _forward(plan, src2, dst2, B, slope, interpret, max_mode="exact",
     # Pass 2: z-weighted aggregate with per-head denominators as the
     # last H columns.  All row-space operands ([src | mx]) gather as ONE
     # combined table, likewise all column-space operands ([dst | B]):
-    # each extra per-slot take costs a full ~1.6ns/slot pass (and 1-wide
-    # takes 7ns/slot, see _pad2), so table count — not table width — is
-    # what the pass pays for.
+    # one per-slot take per table instead of one per operand.
     KK = KB + H
-    K_pad, kt = _fit_kt(plan, KK)
     row_tbl = jnp.concatenate([src_pad, mx], axis=1)  # (m, 2H)
     col_tbl = jnp.concatenate([dst_pad, B32], axis=1)  # (n, H + H*dh)
     out_parts, den_parts = [], []
@@ -158,18 +133,9 @@ def _forward(plan, src2, dst2, B, slope, interpret, max_mode="exact",
         gb = ct[:, H:]  # (S, H*dh)
         z_rep = z if H == 1 and dh == 1 else jnp.repeat(z, dh, axis=1)
         stream = jnp.concatenate([gb * z_rep, z], axis=1)  # (S, KK)
-        if K_pad > KK:
-            stream = jnp.pad(stream, ((0, 0), (0, K_pad - KK)))
-        if mode == "fast":
-            # bf16 stream: halves the aggregate's HBM bytes and runs ONE
-            # MXU pass instead of trilo's three.  ~4e-3 relative on the
-            # attention weights — a training-precision tier (alphas are
-            # post-softmax weights; models train through bf16 attention
-            # routinely), never the default.
-            stream = stream.astype(jnp.bfloat16)
         res = _reduce_part(
             stream, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, kt, mode, interpret, op="sum", fold=getattr(part, "fold", 1))
+            part.rows_per_block, op="sum")
         out_parts.append(res[: part.m_part, :KB])
         den_parts.append(res[: part.m_part, KB:KK])
     out_w = (out_parts[0] if len(out_parts) == 1
@@ -181,23 +147,19 @@ def _forward(plan, src2, dst2, B, slope, interpret, max_mode="exact",
     return out, mx, den
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3, 4))
-def _gat_core(slope, interpret, max_mode, heads, mode, plan, plan_t, src2,
-              dst2, B):
-    out, _, _ = _forward(plan, src2, dst2, B, slope, interpret, max_mode,
-                         heads, mode)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
+def _gat_core(slope, max_mode, heads, plan, plan_t, src2, dst2, B):
+    out, _, _ = _forward(plan, src2, dst2, B, slope, max_mode, heads)
     return out.astype(B.dtype)
 
 
-def _gat_fwd(slope, interpret, max_mode, heads, mode, plan, plan_t, src2,
-             dst2, B):
-    out, mx, den = _forward(plan, src2, dst2, B, slope, interpret,
-                            max_mode, heads, mode)
+def _gat_fwd(slope, max_mode, heads, plan, plan_t, src2, dst2, B):
+    out, mx, den = _forward(plan, src2, dst2, B, slope, max_mode, heads)
     out = out.astype(B.dtype)
     return out, (plan, plan_t, src2, dst2, B, out, mx, den)
 
 
-def _gat_bwd(slope, interpret, max_mode, heads, mode, res, g):
+def _gat_bwd(slope, max_mode, heads, res, g):
     plan, plan_t, src2, dst2, B, out, mx, den = res
     m, n = plan.shape
     H = heads
@@ -210,7 +172,7 @@ def _gat_bwd(slope, interpret, max_mode, heads, mode, res, g):
     out32 = out.astype(jnp.float32)
     # Softmax-attention identity per head: the alpha-weighted row sum of
     # per-edge u_e = g_h·B_h equals <g_r, out_r> within the head block —
-    # no extra stream pass needed.
+    # no extra reduction needed.
     s_row = jnp.sum(
         (g32 * out32).reshape(m, H, dh), axis=-1
     )  # (m, H)
@@ -222,11 +184,9 @@ def _gat_bwd(slope, interpret, max_mode, heads, mode, res, g):
 
     # Pass 3 (plan): d src_score — edge cotangent recomputed per slot.
     # ONE combined row table ([src | mx | den | s_row | g]) and ONE
-    # combined column table ([dst | B]): per-slot take count is the cost
-    # (each ~1.6ns/slot; round 2 paid 5 row takes + 2 tile gathers here
-    # and the narrow ones ran 7ns/slot — that was the measured 9ms GAT
-    # backward wall).  Pass 4 reuses the SAME two tables with the roles
-    # swapped (plan_t's rows are original columns).
+    # combined column table ([dst | B]): two per-slot takes instead of
+    # seven.  Pass 4 reuses the SAME two tables with the roles swapped
+    # (plan_t's rows are original columns).
     row_tbl = jnp.concatenate(
         [src_pad, mx, den, s_row, g32], axis=1
     )  # (m, 4H + KB)
@@ -242,8 +202,8 @@ def _gat_bwd(slope, interpret, max_mode, heads, mode, res, g):
         m_slot = rt[:, H : 2 * H]
         # Clamp: _part_rows_slice zero-pads den to m_pad, and INVALID
         # slots clamp onto those padded rows — an unguarded divide gives
-        # inf whose NaN (inf·0 in the one-hot matmul) poisons the whole
-        # reduce when m % part_rows != 0.
+        # inf there (pad slots are dropped by the reduce, but inf·0 NaNs
+        # must not reach the edge-value paths).
         d_slot = jnp.maximum(rt[:, 2 * H : 3 * H], _DENOM_EPS)
         s_slot = rt[:, 3 * H : 4 * H]
         alpha = jnp.exp(jnp.maximum(l - m_slot, _EXP_FLOOR)) / d_slot
@@ -252,7 +212,7 @@ def _gat_bwd(slope, interpret, max_mode, heads, mode, res, g):
         dpre = alpha * (u - s_slot) * _dleaky(pre, slope)
         gp = _reduce_part(
             dpre, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, H, "trilo", interpret, op="sum", fold=getattr(part, "fold", 1))
+            part.rows_per_block, op="sum")
         gsrc_parts.append(gp[: part.m_part])
     grad_src = (gsrc_parts[0] if len(gsrc_parts) == 1
                 else jnp.concatenate(gsrc_parts, 0))[:m]
@@ -263,7 +223,6 @@ def _gat_bwd(slope, interpret, max_mode, heads, mode, res, g):
     # the node tables, no permutes.  Tables swap roles: col_tbl is now
     # row-indexed, row_tbl tile-gathered.
     KK = KB + H
-    K_pad, kt = _fit_kt(plan_t, KK)
     gB_parts, gdst_parts = [], []
     for part in plan_t.parts:
         rt = jnp.take(
@@ -284,11 +243,9 @@ def _gat_bwd(slope, interpret, max_mode, heads, mode, res, g):
             alpha, dh, axis=1
         )
         stream = jnp.concatenate([alpha_rep * g_slot, dpre], axis=1)
-        if K_pad > KK:
-            stream = jnp.pad(stream, ((0, 0), (0, K_pad - KK)))
         res_p = _reduce_part(
             stream, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, kt, "trilo", interpret, op="sum", fold=getattr(part, "fold", 1))
+            part.rows_per_block, op="sum")
         gB_parts.append(res_p[: part.m_part, :KB])
         gdst_parts.append(res_p[: part.m_part, KB:KK])
     grad_B = (gB_parts[0] if len(gB_parts) == 1
@@ -304,17 +261,15 @@ _gat_core.defvjp(_gat_fwd, _gat_bwd)
 
 def _slot_pre_dot(part, D1_pad, D2_pad):
     """Per-slot dot-product logits D1[r_e] · D2[c_e] — the SDDMM
-    computed directly in slot order (no CSR back-permute; cf. the ~6
-    ns/edge scatter `sddmm_tiled` pays to restore edge order)."""
-    Ka = D1_pad.shape[1]
+    computed directly in slot order (no CSR back-permute)."""
     d1 = jnp.take(
-        _part_rows_slice(part, _pad2(D1_pad)), _slot_rows(part), axis=0
-    )[:, :Ka]
-    d2 = _tile_gather(part, _pad2(D2_pad))[:, :Ka]
+        _part_rows_slice(part, D1_pad), _slot_rows(part), axis=0
+    )
+    d2 = _tile_gather(part, D2_pad)
     return jnp.sum(d1 * d2, axis=-1, keepdims=True)
 
 
-def _dot_forward(plan, D1, D2, B, slope, interpret):
+def _dot_forward(plan, D1, D2, B, slope):
     m, n = plan.shape
     K = B.shape[1]
     D1p = D1.astype(jnp.float32)
@@ -329,19 +284,17 @@ def _dot_forward(plan, D1, D2, B, slope, interpret):
         l = act(_slot_pre_dot(part, D1p, D2p))
         mp = _reduce_part(
             l, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, 1, "trilo", interpret, op="max", fold=getattr(part, "fold", 1))
+            part.rows_per_block, op="max")
         mx_parts.append(mp[: part.m_part])
     mx = (mx_parts[0] if len(mx_parts) == 1
           else jnp.concatenate(mx_parts, 0))[:m]
     mx = jnp.where(jnp.isfinite(mx), mx, 0.0)
 
-    K_pad, kt = _fit_kt(plan, K + 1)
-    Bc = _pad_cols(B32, K_pad - 1) if K_pad - 1 > K else B32
     # Combined tables (see _forward): row [D1 | mx], col [D2 | B] — one
     # take + one tile-gather per part instead of four.
     Ka = D1p.shape[1]
     row_tbl = jnp.concatenate([D1p, mx], axis=1)  # (m, Ka + 1)
-    col_tbl = jnp.concatenate([D2p, Bc], axis=1)  # (n, Ka + K_pad-1)
+    col_tbl = jnp.concatenate([D2p, B32], axis=1)  # (n, Ka + K)
     out_parts, den_parts = [], []
     for part in plan.parts:
         rt = jnp.take(
@@ -356,9 +309,9 @@ def _dot_forward(plan, D1, D2, B, slope, interpret):
         stream = jnp.concatenate([gb * z, z], axis=1)
         res = _reduce_part(
             stream, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, kt, "trilo", interpret, op="sum", fold=getattr(part, "fold", 1))
+            part.rows_per_block, op="sum")
         out_parts.append(res[: part.m_part, :K])
-        den_parts.append(res[: part.m_part, K_pad - 1 : K_pad])
+        den_parts.append(res[: part.m_part, K : K + 1])
     out_w = (out_parts[0] if len(out_parts) == 1
              else jnp.concatenate(out_parts, 0))[:m]
     den = (den_parts[0] if len(den_parts) == 1
@@ -367,19 +320,19 @@ def _dot_forward(plan, D1, D2, B, slope, interpret):
     return out_w / den, mx, den
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def _dot_core(slope, interpret, plan, plan_t, D1, D2, B):
-    out, _, _ = _dot_forward(plan, D1, D2, B, slope, interpret)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
+def _dot_core(slope, plan, plan_t, D1, D2, B):
+    out, _, _ = _dot_forward(plan, D1, D2, B, slope)
     return out.astype(B.dtype)
 
 
-def _dot_fwd(slope, interpret, plan, plan_t, D1, D2, B):
-    out, mx, den = _dot_forward(plan, D1, D2, B, slope, interpret)
+def _dot_fwd(slope, plan, plan_t, D1, D2, B):
+    out, mx, den = _dot_forward(plan, D1, D2, B, slope)
     out = out.astype(B.dtype)
     return out, (plan, plan_t, D1, D2, B, out, mx, den)
 
 
-def _dot_bwd(slope, interpret, res, g):
+def _dot_bwd(slope, res, g):
     plan, plan_t, D1, D2, B, out, mx, den = res
     m, n = plan.shape
     K = B.shape[1]
@@ -397,7 +350,7 @@ def _dot_bwd(slope, interpret, res, g):
     # Pass 3 (plan): grad_D1 — Ka-wide reduce of dpre · D2[c_e].  One
     # combined row table [D1 | mx | den | s_row | g] and one combined
     # column table [D2 | B]; pass 4 reuses them with roles swapped
-    # (same rationale as _gat_bwd — take COUNT is the pass cost).
+    # (same rationale as _gat_bwd).
     row_tbl = jnp.concatenate(
         [D1p, mx, den, s_row, g32], axis=1
     )  # (m, Ka + 3 + K)
@@ -422,14 +375,13 @@ def _dot_bwd(slope, interpret, res, g):
         dpre = alpha * (u - s_slot) * dact(pre)
         gp = _reduce_part(
             dpre * d2s, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, min(Ka, 512), "trilo", interpret, op="sum", fold=getattr(part, "fold", 1))
+            part.rows_per_block, op="sum")
         gD1_parts.append(gp[: part.m_part])
     grad_D1 = (gD1_parts[0] if len(gD1_parts) == 1
                else jnp.concatenate(gD1_parts, 0))[:m]
 
     # Pass 4 (plan_t): [dB | grad_D2] in one (K+Ka)-wide reduce.
     KK = K + Ka
-    K_pad, kt = _fit_kt(plan_t, KK)
     gB_parts, gD2_parts = [], []
     for part in plan_t.parts:
         rt = jnp.take(
@@ -448,11 +400,9 @@ def _dot_bwd(slope, interpret, res, g):
         u = jnp.sum(g_slot * b_slot, axis=-1, keepdims=True)
         dpre = alpha * (u - s_slot) * dact(pre)
         stream = jnp.concatenate([alpha * g_slot, dpre * d1s], axis=1)
-        if K_pad > KK:
-            stream = jnp.pad(stream, ((0, 0), (0, K_pad - KK)))
         res_p = _reduce_part(
             stream, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, kt, "trilo", interpret, op="sum", fold=getattr(part, "fold", 1))
+            part.rows_per_block, op="sum")
         gB_parts.append(res_p[: part.m_part, :K])
         gD2_parts.append(res_p[: part.m_part, K : KK])
     grad_B = (gB_parts[0] if len(gB_parts) == 1
@@ -473,7 +423,6 @@ def dot_attention_aggregate(
     B: Array,
     *,
     negative_slope: Optional[float] = None,
-    interpret: Optional[bool] = None,
 ) -> Array:
     """out[r] = Σ_c softmax_c(act(D1[r]·D2[c])) · B[c] over the edge
     pattern — fused dot-product (transformer-style) graph attention.
@@ -493,8 +442,6 @@ def dot_attention_aggregate(
             "dot_attention_aggregate needs Adjacency.from_csr(csr, "
             "plan=True) (tiled stream plans for both directions)"
         )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     if D1.ndim != 2 or D2.ndim != 2 or D1.shape[1] != D2.shape[1]:
         raise ValueError(f"D1 {D1.shape} / D2 {D2.shape} must be (m,Ka)/(n,Ka)")
     if D1.shape[0] != plan.shape[0] or D2.shape[0] != plan.shape[1]:
@@ -505,7 +452,7 @@ def dot_attention_aggregate(
     if B.ndim != 2 or B.shape[0] != plan.shape[1]:
         raise ValueError(f"B must be ({plan.shape[1]}, K), got {B.shape}")
     slope = None if negative_slope is None else float(negative_slope)
-    return _dot_core(slope, bool(interpret), plan, plan_t, D1, D2, B)
+    return _dot_core(slope, plan, plan_t, D1, D2, B)
 
 
 def gat_attention_aggregate(
@@ -515,10 +462,8 @@ def gat_attention_aggregate(
     B: Array,
     *,
     negative_slope: float = 0.2,
-    interpret: Optional[bool] = None,
     max_mode: str = "exact",
     heads: int = 1,
-    mode: str = "trilo",
 ) -> Array:
     """out[r] = Σ_c softmax_c(leaky(src[r]+dst[c])) · B[c] over the edge
     pattern — the whole GATv1 attention layer as one fused op.
@@ -526,8 +471,8 @@ def gat_attention_aggregate(
     Needs an ``Adjacency`` with tiled plans (``plan=True``).
     ``src_score``: (m,) or (m, H); ``dst_score``: (n,) or (n, H);
     ``B``: (n, H·dh) in head blocks (``heads`` = H).  ALL heads batch
-    into one K=H max pass and one (H·dh + H)-wide aggregate — much
-    better TPU lane shapes than a per-head loop.  Differentiable
+    into one K=H max pass and one (H·dh + H)-wide aggregate instead of a
+    per-head loop.  Differentiable
     w.r.t. all three tensors (custom VJP above).
     ``max_mode``: "exact" (per-row max via a K=H stream pass) or
     "bound" (O(n) shift via src[r]+max(dst) per head; exact alphas
@@ -540,8 +485,6 @@ def gat_attention_aggregate(
             "gat_attention_aggregate needs Adjacency.from_csr(csr, "
             "plan=True) (tiled stream plans for both directions)"
         )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     src2 = src_score[:, None] if src_score.ndim == 1 else src_score
     dst2 = dst_score[:, None] if dst_score.ndim == 1 else dst_score
     H = int(heads)
@@ -558,7 +501,5 @@ def gat_attention_aggregate(
         )
     if max_mode not in ("exact", "bound"):
         raise ValueError(f"max_mode must be exact|bound, got {max_mode!r}")
-    if mode not in ("trilo", "hilo", "fast"):
-        raise ValueError(f"mode must be trilo|hilo|fast, got {mode!r}")
-    return _gat_core(float(negative_slope), bool(interpret), str(max_mode),
-                     H, str(mode), plan, plan_t, src2, dst2, B)
+    return _gat_core(float(negative_slope), str(max_mode), H, plan, plan_t,
+                     src2, dst2, B)

@@ -1,37 +1,21 @@
-"""Stream-reduce SpMM: tiled XLA gather + Pallas VMEM-resident reduction.
+"""Tiled SpMM over a host-built slot layout: XLA gather, XLA segment reduce.
 
-The second-generation TPU SpMM (the "v2" of `spmm_pallas.py`), built from
-measured v5e behavior rather than translated GPU structure:
+The plan (`sparse/partition.build_tiled_plan`) sorts each row part's edges by
+(column tile, row) and pads them into chunks of E slots whose rows fit a
+window of R. The gather phase takes the rows of ``B`` that feed each slot,
+one `take` per column tile, scaled by the edge values. The reduce phase folds
+the slots into the part's output rows with `jax.ops.segment_sum` (or
+`segment_max` / `segment_min`), keyed by ``row_start[c] + local_rows[c, j]``;
+pad slots carry the key ``m_pad`` and are dropped.
 
-  * Scattered per-edge row fetches from an HBM-resident dense operand are
-    descriptor-issue-bound (~10ns/row) no matter who issues them (XLA
-    gather or hand-rolled per-row DMA).  But XLA's `take` from a table that
-    fits VMEM runs at ~0.4-2.2ns/row.  So the dense operand is gathered
-    **per column tile** (each tile VMEM-sized), which needs edges sorted by
-    (tile, row) — the host plan in `sparse/partition.build_tiled_plan`.
+Every per-edge composition in the package that works in slot order rides
+`_reduce_part`: the tiled SpMM here, the edge softmax normalizers
+(`edge_segment_reduce`), the max/min VJP, the fused attention chain in
+`kernels/gat_fused.py` and the tiled halo tier in `parallel/halo.py`.
 
-  * `jax.ops.segment_sum` / scatter-add measured ~10.7ns/edge — slower
-    than the gather it reduces.  The reduction here is instead a Pallas
-    kernel: the gathered contribution stream is consumed at full HBM
-    bandwidth in chunks of E slots, and each chunk is folded into a
-    **VMEM-resident** output accumulator with one MXU scatter-matmul
-    out[rs:rs+R] += onehot(local_rows) @ contrib_chunk.  Output rows are
-    split into parts sized so the accumulator fits VMEM (~64MB budget of
-    the ~128MB on v5e), the TPU analogue of the reference's row-per-warp
-    ownership (`spmm_test.cu:104-159`) — each part owns its reduction, no
-    atomics.
-
-  * Numerics: the one-hot matrix is exact in bf16; the contribution chunk
-    is split into bf16 mantissa chunks for the MXU passes.  Default mode
-    "trilo" (3 chunks) recovers full f32 values — result matches f32
-    accumulation to roundoff at half HIGHEST's MXU cost; "hilo" (2 chunks,
-    ~1e-5 relative, grows with row degree) and "fast" (1 pass, ~4e-3) are
-    the speed tiers.
-
-Reference parity: this is the edge-valued + binary SpMM kernel family
-(`spmm_test.cu:64-454`, `spmm_kernel.cu:31-173`) re-designed TPU-first;
-CRC's shared-memory staging becomes the VMEM-resident gather tile, CWM's
-accumulator widening becomes the K-tile dimension of the resident output.
+Reference parity: the edge-valued + binary SpMM kernel family
+(`spmm_test.cu:64-454`, `spmm_kernel.cu:31-173`). The one-pass CSR kernel
+that follows the reference's own design is `kernels/spmm_csr.py`.
 """
 
 from __future__ import annotations
@@ -41,386 +25,87 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from gespmm_tpu.sparse.partition import TiledPartPlan, TiledSpmmPlan
 
 Array = jax.Array
 
-# HBM cap for the materialized gathered-contribution stream; K is
-# processed in slabs when S*K*itemsize exceeds it (spmm_tiled).  Each
-# slab pass re-gathers every slot, so fewer/wider slabs win as long as
-# the stream fits device memory (v5e: 16GB HBM; 4GB leaves room for the
-# operands, the f32 accumulator, and the caller's live buffers —
-# measured rmat16 K=512: one 3.9GB stream beats 2x2GB slabs 62.6 vs
-# 51.7 GF/s with the K-hinted plan).
-_STREAM_BUDGET = 4 << 30
+
+def _stream_budget() -> int:
+    """Byte cap on one materialized (slots x K) gather stream.
+
+    A quarter of the device's memory limit, leaving room for the operands,
+    the output and the caller's live buffers. Backends that report no
+    memory statistics (the CPU) get 4 GiB.
+    """
+    stats = jax.devices()[0].memory_stats()
+    if stats and stats.get("bytes_limit"):
+        return int(stats["bytes_limit"]) // 4
+    return 4 << 30
 
 
-def _round_up(x: int, a: int) -> int:
-    return -(-x // a) * a
+def _k_slab(slots: int, K: int) -> Optional[int]:
+    """Columns per pass when a (slots x K) f32 stream exceeds the budget
+    (each pass re-gathers every slot); None when one pass fits."""
+    budget = _stream_budget()
+    if slots * 4 * K <= budget or K <= 128:
+        return None
+    return max(128, (budget // (slots * 4) // 128) * 128)
 
 
-def _reduce_kernel(
-    row_start_ref,  # (C,) SMEM scalar-prefetch
-    local_rows_ref,  # (G, 1, E) VMEM
-    contrib_ref,  # (G*E, k_tile) VMEM (streamed)
-    out_ref,  # (m_pad, k_tile) VMEM-resident accumulator
-    ties_ref=None,  # (m_pad, k_tile) VMEM-resident tie counts (max/min)
-    *,
-    rows_per_block: int,
-    mode: str,
-    group: int,
-    op: str = "sum",
-    max_run: int = 0,
-    fold: int = 1,
-    k_tile: int = 0,
-):
-    # fold > 1: the stream block is ((group*E)//fold, fold*k_tile) — F
-    # consecutive chunks' slots interleaved so each DMA row is F*K wide
-    # (the stream transfer is descriptor-bound at narrow K; see
-    # sparse/partition._fold_factor).  Chunk i = (gg, f) reads rows
-    # [gg*E, (gg+1)*E) columns [f*k_tile, (f+1)*k_tile).
-    cg = pl.program_id(0)
-    R = rows_per_block
-    init_val = {"sum": 0.0, "max": -jnp.inf, "min": jnp.inf}[op]
-
-    @pl.when(cg == 0)
-    def _():
-        # Init in row-slices: a whole-buffer assignment materializes a
-        # second accumulator-sized temporary on the VMEM stack, which
-        # blows the scoped limit once m_pad*k_tile*4 exceeds ~half of it.
-        m_pad, ktile = out_ref.shape
-        z = min(m_pad, 4096)
-        fill = jnp.full((z, ktile), init_val, out_ref.dtype)
-        zfill = jnp.zeros((z, ktile), out_ref.dtype)
-        for r0 in range(0, m_pad, z):
-            rows = min(z, m_pad - r0)
-            out_ref[r0 : r0 + rows, :] = fill[:rows]
-            if ties_ref is not None:
-                ties_ref[r0 : r0 + rows, :] = zfill[:rows]
-
-    def dot(p, g):
-        return jax.lax.dot_general(
-            p, g,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    def trilo_dot(p_bool, vals32):
-        # Three bf16 passes (hi + mid + lo mantissa chunks) with an exact
-        # 0/1 bf16 one-hot recover the full f32 value of each
-        # contribution; where each output row has at most ONE contributor
-        # (the max/min scatter) the result is bitwise-exact f32.
-        p = p_bool.astype(jnp.bfloat16)
-        hi = vals32.astype(jnp.bfloat16)
-        r1 = vals32 - hi.astype(jnp.float32)
-        mid = r1.astype(jnp.bfloat16)
-        lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-        return dot(p, hi) + dot(p, mid) + dot(p, lo)
-
-    if op in ("max", "min"):
-        # Per-chunk segmented-scan reduction: slots within a chunk are
-        # sorted by row (the plan orders edges by (tile, row)), so each
-        # row's slots form one contiguous run.  An inclusive shift-scan
-        # with run boundaries leaves the run's reduction at its LAST
-        # slot; that single slot per (row, chunk) is scattered through
-        # an exact one-hot matmul and folded into the resident
-        # accumulator.  Round 4: the scan stops at the plan's longest
-        # (tile, row) run (`max_run`) instead of always covering E —
-        # low-degree graphs drop most of the shift steps.  (A batched
-        # whole-window flag-scan was tried and measured SLOWER: the key
-        # build + flag traffic exceeded the per-chunk savings.)
-        # ≙ the reference's dedicated max kernel family
-        # (`dgl-custom/binary_reduce_max.cu:18-207`), re-expressed for
-        # VPU + MXU instead of warp-serial compare-exchange.
-        fold_fn = jnp.maximum if op == "max" else jnp.minimum
-        ident = init_val
-        for i in range(group):
-            lr = local_rows_ref[i, 0, :]  # (E,)
-            E = lr.shape[0]
-            rows_iota = jax.lax.broadcasted_iota(jnp.int32, (R, E), 0)
-            if fold > 1:
-                gg, f = divmod(i, fold)
-                g32 = contrib_ref[
-                    gg * E : (gg + 1) * E,
-                    f * k_tile : (f + 1) * k_tile,
-                ].astype(jnp.float32)
-            else:
-                g32 = contrib_ref[i * E : (i + 1) * E, :].astype(
-                    jnp.float32)
-            ktile = g32.shape[1]
-            # Masks are built from int32 column/row vectors: Mosaic only
-            # supports minor-dim insertion (the [:, None] reshape) for
-            # 32-bit types, so comparisons happen AFTER the reshape.
-            lr_c = lr[:, None]  # (E, 1) int32
-            vals = jnp.where(lr_c < R, g32, ident)
-            # Tie counting rides the same scan as a (value, count) pair
-            # monoid: combine((m1,c1),(m2,c2)) = c1+c2 if m1==m2 else
-            # the count of the winning side.  Exact: counts are small
-            # ints and value comparisons are bitwise.  Emitted so the
-            # max/min VJP can skip its tie-recount stream (phase 1 of
-            # spmm_minmax_vjp_tiled).
-            cnt = (
-                jnp.where(lr_c < R, 1.0, 0.0) * jnp.ones((1, ktile))
-                if ties_ref is not None else None
-            )
-            limit = min(max_run, E) if max_run > 0 else E
-            s = 1
-            while s < limit:
-                prev = jnp.concatenate(
-                    [jnp.full((s, ktile), ident, vals.dtype), vals[:-s]],
-                    axis=0,
-                )
-                prev_lr_c = jnp.concatenate(
-                    [jnp.full((s, 1), -1, lr.dtype), lr_c[:-s]], axis=0
-                )
-                same = lr_c == prev_lr_c
-                if cnt is not None:
-                    prev_cnt = jnp.concatenate(
-                        [jnp.zeros((s, ktile), cnt.dtype), cnt[:-s]],
-                        axis=0,
-                    )
-                    prev_wins = (
-                        prev > vals if op == "max" else prev < vals
-                    )
-                    cnt = jnp.where(
-                        same & (prev == vals), cnt + prev_cnt,
-                        jnp.where(same & prev_wins, prev_cnt, cnt),
-                    )
-                vals = jnp.where(same, fold_fn(vals, prev), vals)
-                s *= 2
-            nxt_lr_c = jnp.concatenate(
-                [lr_c[1:], jnp.full((1, 1), -1, lr.dtype)], axis=0
-            )
-            last_c = (lr_c != nxt_lr_c) & (lr_c < R)  # (E, 1) bool
-            lr_r = lr[None, :]  # (1, E) int32
-            nxt_lr_r = jnp.concatenate(
-                [lr_r[:, 1:], jnp.full((1, 1), -1, lr.dtype)], axis=1
-            )
-            last_r = (lr_r != nxt_lr_r) & (lr_r < R)  # (1, E) bool
-            onehot = (rows_iota == lr_r) & last_r
-            sel = jnp.where(last_c, vals, 0.0)
-            folded = trilo_dot(onehot, sel)
-            has = jnp.sum(onehot.astype(jnp.float32), axis=1)  # (R,)
-            rs = pl.multiple_of(row_start_ref[cg * group + i], 8)
-            cur = out_ref[pl.ds(rs, R), :]
-            hasb = has[:, None] > 0
-            out_ref[pl.ds(rs, R), :] = jnp.where(
-                hasb, fold_fn(cur, folded), cur
-            )
-            if cnt is not None:
-                # hi/lo bf16 split is exact for integer counts < 2^16
-                # (a chunk contributes at most E achievers per row).
-                p = onehot.astype(jnp.bfloat16)
-                sel_cnt = jnp.where(last_c, cnt, 0.0)
-                hi = sel_cnt.astype(jnp.bfloat16)
-                lo = (sel_cnt - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-                folded_cnt = dot(p, hi) + dot(p, lo)
-                wins = folded > cur if op == "max" else folded < cur
-                curt = ties_ref[pl.ds(rs, R), :]
-                ties_ref[pl.ds(rs, R), :] = jnp.where(
-                    hasb & wins, folded_cnt,
-                    jnp.where(hasb & (folded == cur),
-                              curt + folded_cnt, curt),
-                )
-        return
-
-    # `group` chunks per grid step amortize the pipeline's fixed per-step
-    # cost (~1us measured), which dominates small graphs.
-    for i in range(group):
-        lr = local_rows_ref[i, 0, :]  # (E,)
-        E = lr.shape[0]
-        rows_iota = jax.lax.broadcasted_iota(jnp.int32, (R, E), 0)
-
-        onehot = rows_iota == lr[None, :]
-        if fold > 1:
-            gg, f = divmod(i, fold)
-            g32 = contrib_ref[
-                gg * E : (gg + 1) * E, f * k_tile : (f + 1) * k_tile
-            ].astype(jnp.float32)
-        else:
-            g32 = contrib_ref[i * E : (i + 1) * E, :].astype(jnp.float32)
-        if mode == "trilo":
-            # See trilo_dot: matches f32 accumulation to roundoff at 3
-            # bf16 MXU passes instead of HIGHEST's ~6.
-            acc = trilo_dot(onehot, g32)
-        elif mode == "hilo":
-            p = onehot.astype(jnp.bfloat16)
-            hi = g32.astype(jnp.bfloat16)
-            lo = (g32 - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-            acc = dot(p, hi) + dot(p, lo)
-        elif mode == "fast":
-            acc = dot(
-                onehot.astype(jnp.bfloat16), g32.astype(jnp.bfloat16)
-            )
-        else:  # highest
-            acc = jax.lax.dot_general(
-                onehot.astype(jnp.float32), g32,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-
-        rs = pl.multiple_of(row_start_ref[cg * group + i], 8)
-        out_ref[pl.ds(rs, R), :] += acc
+def _slot_segments(local_rows: Array, row_start: Array, rows_per_block: int,
+                   m_pad: int) -> Array:
+    """Flat per-slot output row; pad slots map to ``m_pad`` (dropped)."""
+    seg = row_start[:, None] + local_rows
+    return jnp.where(local_rows < rows_per_block, seg, m_pad).reshape(-1)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("m_pad", "rows_per_block", "k_tile",
-                              "mode", "interpret", "op", "want_ties",
-                              "max_run", "force_group", "fold")
+    jax.jit, static_argnames=("m_pad", "rows_per_block", "op", "want_ties")
 )
 def _reduce_part(
-    contrib: Array,  # (S, K_pad)
-    local_rows: Array,  # (C, E)
+    contrib: Array,  # (S, K), slot order
+    local_rows: Array,  # (C, E), S = C * E
     row_start: Array,  # (C,)
     m_pad: int,
     rows_per_block: int,
-    k_tile: int,
-    mode: str,
-    interpret: bool,
     op: str = "sum",
     want_ties: bool = False,
-    max_run: int = 0,
-    force_group: Optional[int] = None,
-    fold: int = 1,
 ):
-    C, E = local_rows.shape
-    K_pad = contrib.shape[1]
-    n_k = K_pad // k_tile
-    # Plans pad C to CHUNK_GROUP (16); older explicit plans may
-    # only be 4-aligned.  The group amortizes the TPU pipeline's ~1us
-    # per-grid-step cost; in interpret mode (CPU tests) there is no such
-    # cost and a 16-way unrolled body only multiplies trace/compile time,
-    # so group stays 1 there.
-    if force_group is not None:
-        if fold > 1 and force_group % fold:
-            raise ValueError(
-                f"force_group={force_group} must be a multiple of the "
-                f"plan's fold ({fold})"
-            )
-        G = force_group  # test hook: exercise the batched minmax scan
-    elif fold > 1:
-        # Folded plans pad C to max(CHUNK_GROUP, fold); the group must
-        # cover whole fold-groups (even in interpret mode).
-        G = 16 if C % 16 == 0 else fold
-    elif interpret:
-        G = 1
-    else:
-        G = 16 if C % 16 == 0 else (4 if C % 4 == 0 else 1)
+    """Fold a part's slot stream into its (m_pad, K) float32 output.
 
-    kernel = functools.partial(
-        _reduce_kernel, rows_per_block=rows_per_block, mode=mode, group=G,
-        op=op, max_run=max_run, fold=fold, k_tile=k_tile,
-    )
-    passes = {"highest": 6, "trilo": 3, "hilo": 2}.get(mode, 1)
-    lr3 = local_rows.reshape(C, 1, E)
-    # One pallas_call per K tile, with the tile offset closed over
-    # STATICALLY: the output window's index map is then constant across
-    # the whole grid, so Mosaic keeps the resident accumulator
-    # single-buffered at the full VMEM budget.  (With K folded into the
-    # grid the window's index map varied with the K step and Pallas
-    # double-buffered it — that halved the budget and collapsed the
-    # K=512 roofline fractions to 0.10-0.34 in round 2.)
-    acc_spec = lambda: pl.BlockSpec(  # noqa: E731
-        (m_pad, k_tile), lambda cg, rs: (0, 0), memory_space=pltpu.VMEM
-    )
-    acc_shape = jax.ShapeDtypeStruct((m_pad, k_tile), jnp.float32)
-    if fold > 1:
-        S = contrib.shape[0]
-        c3 = contrib.reshape(S // fold, fold, K_pad)
-    outs = []
-    ties = []
-    for kti in range(n_k):
-        if fold > 1:
-            # Folded stream: one full-width block per grid step.  With
-            # multiple K tiles each tile's folded view is a strided
-            # column selection (one relayout pass — rare: folded plans
-            # slab K at the caller to stay single-pass).
-            if n_k == 1:
-                contrib_k = contrib.reshape(S // fold, fold * k_tile)
-            else:
-                contrib_k = c3[
-                    :, :, kti * k_tile : (kti + 1) * k_tile
-                ].reshape(S // fold, fold * k_tile)
-            stream_spec = pl.BlockSpec(
-                ((G * E) // fold, fold * k_tile),
-                lambda cg, rs: (cg, 0), memory_space=pltpu.VMEM,
-            )
-        else:
-            contrib_k = contrib
-            stream_spec = pl.BlockSpec(
-                (G * E, k_tile), lambda cg, rs, _k=kti: (cg, _k),
-                memory_space=pltpu.VMEM,
-            )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,  # row_start
-            grid=(C // G,),
-            in_specs=[
-                pl.BlockSpec((G, 1, E), lambda cg, rs: (cg, 0, 0),
-                             memory_space=pltpu.VMEM),
-                stream_spec,
-            ],
-            out_specs=(
-                [acc_spec(), acc_spec()] if want_ties else acc_spec()
-            ),
-        )
-        res = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=(
-                [acc_shape, acc_shape] if want_ties else acc_shape
-            ),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",),
-                # The resident accumulator (m_pad x k_tile) plus streamed
-                # chunk buffers exceed the 16MB default scoped-vmem limit;
-                # v5e has 128MB physical VMEM.
-                vmem_limit_bytes=112 * 1024 * 1024,
-            ),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * C * rows_per_block * E * k_tile * passes,
-                bytes_accessed=C * E * k_tile * 4 + m_pad * k_tile * 4,
-                transcendentals=0,
-            ),
-            interpret=interpret,
-        )(row_start, lr3, contrib_k)
-        if want_ties:
-            outs.append(res[0])
-            ties.append(res[1])
-        else:
-            outs.append(res)
-    out = outs[0] if n_k == 1 else jnp.concatenate(outs, axis=1)
+    ``op`` "sum" | "max" | "min". Rows that receive no slot hold the
+    monoid's identity (0, -inf, +inf); callers map ±inf to 0.
+    ``want_ties`` (max/min): also return the per-(row, k) count of slots
+    that achieve the extremum, as float32.
+    """
+    seg = _slot_segments(local_rows, row_start, rows_per_block, m_pad)
+    c = contrib.astype(jnp.float32)
+    if op == "sum":
+        return jax.ops.segment_sum(c, seg, num_segments=m_pad)
+    reduce = jax.ops.segment_max if op == "max" else jax.ops.segment_min
+    out = reduce(c, seg, num_segments=m_pad)
     if not want_ties:
         return out
-    return out, ties[0] if n_k == 1 else jnp.concatenate(ties, axis=1)
+    valid = (seg < m_pad)[:, None]
+    hit = valid & (c == jnp.take(out, jnp.minimum(seg, m_pad - 1), axis=0))
+    ties = jax.ops.segment_sum(hit.astype(jnp.float32), seg,
+                               num_segments=m_pad)
+    return out, ties
 
 
-def _gather_part(
-    part: TiledPartPlan,
-    data: Optional[Array],
-    B: Array,
-    stream_dtype=None,
-) -> Array:
-    """XLA gather phase: per column tile, take rows of a VMEM-sized slice
-    of B; scale by edge values while still in registers.
-
-    ``stream_dtype``: dtype of the MATERIALIZED contribution stream (the
-    kernel's HBM input).  bf16 halves the stream's write+read traffic —
-    the dominant cost at large K — and is what mode="fast" rides."""
+def _gather_part(part: TiledPartPlan, data: Optional[Array], B: Array) -> Array:
+    """Gather phase: per column tile, take rows of that slice of B; scale
+    by the edge values. Returns the (S, K) float32 contribution stream."""
     vals = None
     if data is not None:
-        vals = jnp.take(data, part.src, axis=0)
+        vals = jnp.take(data, part.src, axis=0).astype(jnp.float32)
     pieces = []
     for col0, ncols, slot0, slot1 in part.tile_slices:
-        tile = B[col0 : col0 + ncols]
-        g = jnp.take(tile, part.lcols[slot0:slot1], axis=0)
+        g = jnp.take(B[col0 : col0 + ncols], part.lcols[slot0:slot1],
+                     axis=0).astype(jnp.float32)
         if vals is not None:
-            g = g * vals[slot0:slot1, None].astype(g.dtype)
-        if stream_dtype is not None and g.dtype != stream_dtype:
-            g = g.astype(stream_dtype)
+            g = g * vals[slot0:slot1, None]
         pieces.append(g)
     return pieces[0] if len(pieces) == 1 else jnp.concatenate(pieces, 0)
 
@@ -431,159 +116,61 @@ def spmm_tiled(
     B: Array,
     m: int,
     *,
-    k_tile: int = 512,
-    mode: str = "trilo",
-    interpret: Optional[bool] = None,
     reduce: str = "sum",
     want_ties: bool = False,
 ):
-    """SpMM via tiled gather + streaming VMEM reduction.
+    """SpMM through the tiled slot layout.
 
     ``data``: per-edge values in CSR order, or None for implicit 1.0.
     Output dtype follows B (accumulation is always f32).
-    ``mode``: "trilo" (default, f32-grade) | "hilo" | "highest" | "fast"
-      (sum only — max/min use an exact segmented scan + one-hot select).
     ``reduce``: "sum" | "max" | "min".  Empty rows produce 0 under every
     monoid (matching ops/reference semantics).
     ``want_ties`` (max/min only): also return the (m, K) f32 count of
-    edges achieving each output value — the in-kernel pair-monoid scan
-    lets the VJP (`spmm_minmax_vjp_tiled`) skip its tie-recount stream.
+    edges achieving each output value, which the max/min VJP reuses.
     Returns ``out`` or ``(out, ties)``.
     """
     if reduce not in ("sum", "max", "min"):
         raise ValueError(f"spmm_tiled reduce must be sum/max/min, got {reduce!r}")
     if want_ties and reduce == "sum":
         raise ValueError("want_ties requires reduce='max' or 'min'")
-    # Tie counts accumulate in f32 (exact integers < 2^24 ≫ any real
-    # row degree), so the aligned tier needs no count guard.
     mm = getattr(plan, "minmax", None)
     if reduce in ("max", "min") and mm is not None:
         return spmm_minmax_aligned(
             mm, data, B, m, reduce=reduce, want_ties=want_ties,
-            interpret=interpret,
         )
-    if want_ties:
-        # The kernel's hi/lo bf16 split of per-chunk tie counts is exact
-        # only for integers < 2^16; a chunk contributes at most E
-        # achievers per row, so E bounds the count.
-        bad = max(p.chunk_nnz for p in plan.parts)
-        if bad >= 65536:
-            raise ValueError(
-                f"want_ties requires chunk_nnz < 65536 (got {bad}): "
-                "per-chunk tie counts ride an exact hi/lo bf16 split"
-            )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n, K = B.shape
-    # The gathered contribution stream materializes S×K×itemsize bytes in
-    # HBM; at large K × multi-million-slot plans that exceeds device
-    # memory (rmat18 K=512: 17 GB).  Bound it by processing K in slabs —
-    # each slab is an independent gather+reduce over a column slice of B.
-    item = 2 if (
-        (B.dtype == jnp.bfloat16 and data is None)
-        or (mode == "fast" and reduce == "sum")
-    ) else 4
-    slots_max = max(p.num_slots for p in plan.parts)
-    stream_budget = _STREAM_BUDGET
-    if slots_max * item * K > stream_budget and K > 128:
-        k_slab = max(128, (stream_budget // (slots_max * item) // 128) * 128)
-        outs = []
-        for k0 in range(0, K, k_slab):
-            outs.append(spmm_tiled(
-                plan, data, B[:, k0 : k0 + k_slab], m, k_tile=k_tile,
-                mode=mode, interpret=interpret, reduce=reduce,
-                want_ties=want_ties,
-            ))
+    K = B.shape[1]
+    k_slab = _k_slab(max(p.num_slots for p in plan.parts), K)
+    if k_slab is not None:
+        outs = [
+            spmm_tiled(plan, data, B[:, k0 : k0 + k_slab], m,
+                       reduce=reduce, want_ties=want_ties)
+            for k0 in range(0, K, k_slab)
+        ]
         if want_ties:
             return (jnp.concatenate([o[0] for o in outs], axis=1),
                     jnp.concatenate([o[1] for o in outs], axis=1))
         return jnp.concatenate(outs, axis=1)
-    # bf16 inputs with implicit-1.0 edges: one bf16 MXU pass is EXACT
-    # (the contributions already carry no more than bf16 precision), and
-    # the gathered stream halves its HBM traffic.
-    if B.dtype == jnp.bfloat16 and data is None:
-        Bc, mode = B, "fast"
-    else:
-        Bc = B.astype(jnp.float32)
-    # mode="fast" with sum: the kernel consumes one bf16 MXU pass anyway,
-    # so materialize the stream in bf16 — halves its write+read HBM
-    # traffic (the large-K wall; see docs/PERF.md roofline analysis).
-    stream_dtype = (
-        jnp.bfloat16 if (mode == "fast" and reduce == "sum") else None
-    )
-    # Max K per pass, capped so the resident accumulator (m_pad x kt x
-    # 4B) stays within ~64MB of VMEM for the largest part (streamed chunk
-    # buffers and the scoped limit take the rest of the 128MB on v5e).
-    # want_ties keeps a second resident accumulator — halve the budget.
-    m_pad_max = max(p.m_pad for p in plan.parts)
-    acc_budget = (32 if want_ties else 64) * 1024 * 1024
-    budget_rows = acc_budget // max(m_pad_max * 4, 1)
-    kt_max = min(k_tile, max(128, (budget_rows // 128) * 128))
-    kt_max = max(128, (kt_max // 128) * 128)
-    max_fold = max(getattr(p, "fold", 1) for p in plan.parts)
-    if max_fold > 1 and K > kt_max:
-        # Folded plans stay single-K-pass: slab B's columns so each pass
-        # fits the accumulator budget (the fold's strided multi-tile
-        # fallback in _reduce_part costs an extra relayout; slabbing
-        # re-gathers instead, which the K>=512 regime absorbs).
-        outs = []
-        for k0 in range(0, K, kt_max):
-            outs.append(spmm_tiled(
-                plan, data, B[:, k0 : k0 + kt_max], m, k_tile=k_tile,
-                mode=mode, interpret=interpret, reduce=reduce,
-                want_ties=want_ties,
-            ))
-        if want_ties:
-            return (jnp.concatenate([o[0] for o in outs], axis=1),
-                    jnp.concatenate([o[1] for o in outs], axis=1))
-        return jnp.concatenate(outs, axis=1)
-    if K <= kt_max:
-        # Single pass at the exact width — Pallas allows a block dim equal
-        # to the full array dim, so narrow K (e.g. 32) needs NO padding.
-        K_pad = K
-    else:
-        # Multi-pass: one pallas_call per K tile (static offsets), so the
-        # resident accumulator stays single-buffered at every tile — no
-        # budget halving.  kt_max must be a multiple of 128: the fitting
-        # loop below steps by 128 (a non-multiple k_tile would never
-        # divide K_pad and loop forever).
-        K_pad = _round_up(K, 128)
-        if K_pad != K:
-            Bc = jnp.pad(Bc, ((0, 0), (0, K_pad - K)))
 
     outs = []
     ties = []
     for part in plan.parts:
-        kt = min(kt_max, K_pad)
-        while K_pad % kt:
-            kt -= 128
-        contrib = _gather_part(part, data, Bc, stream_dtype=stream_dtype)
+        contrib = _gather_part(part, data, B)
         out_p = _reduce_part(
-            contrib,
-            part.local_rows,
-            part.row_start,
-            part.m_pad,
-            part.rows_per_block,
-            kt,
-            mode,
-            interpret,
-            op=reduce,
-            want_ties=want_ties,
-            max_run=part.max_run if reduce in ("max", "min") else 0,
-            fold=getattr(part, "fold", 1),
+            contrib, part.local_rows, part.row_start, part.m_pad,
+            part.rows_per_block, op=reduce, want_ties=want_ties,
         )
         if want_ties:
             out_p, ties_p = out_p
             ties.append(ties_p[: part.m_part])
         outs.append(out_p[: part.m_part])
     out = outs[0] if len(outs) == 1 else jnp.concatenate(outs, 0)
-    out = out[:m, :K]
+    out = out[:m]
     if reduce in ("max", "min"):
         # Rows with no nonzeros still hold the ±inf identity.
         out = jnp.where(jnp.isfinite(out), out, 0.0)
     if want_ties:
         t = ties[0] if len(ties) == 1 else jnp.concatenate(ties, 0)
-        return out.astype(B.dtype), t[:m, :K]
+        return out.astype(B.dtype), t[:m]
     return out.astype(B.dtype)
 
 
@@ -595,32 +182,26 @@ def spmm_minmax_aligned(
     *,
     reduce: str = "max",
     want_ties: bool = False,
-    interpret: Optional[bool] = None,
 ):
-    """Scan-free, kernel-free max/min SpMM over the row-aligned layout.
+    """Scan-free max/min SpMM over the row-aligned layout.
 
     Pure XLA: per degree class one slice of a single padded-table gather
     reshape-reduces to per-row-segment candidates (+ achieving counts
     when ``want_ties``); mega rows recurse through the plan's extra
     levels; the final scatter is an inverse-permutation ``take``
     (rows partition across classes — see
-    `sparse/partition.AlignedMinmaxPlan`).  Replaces the stream kernel's
-    ceil(log2(hub-degree)) full-stream scan passes (VERDICT r4 #4, the
-    SAGE-pool floor in bench_results/pool_profile.md).
+    `sparse/partition.AlignedMinmaxPlan`).
 
-    Semantics identical to the scan path: empty rows 0, even
+    Semantics identical to the segment-reduce path: empty rows 0, even
     tie-splitting counts, exact selections.
     """
-    del interpret  # same code path everywhere — no Pallas kernel
     n, K = B.shape
     fold = jnp.max if reduce == "max" else jnp.min
     ident = jnp.float32(-jnp.inf if reduce == "max" else jnp.inf)
-    # Bound the materialized per-class gather (the same HBM discipline
-    # as spmm_tiled's K-slabbing).
-    if aplan.num_slots * 4 * K > _STREAM_BUDGET and K > 128:
-        k_slab = max(
-            128, (_STREAM_BUDGET // (aplan.num_slots * 4) // 128) * 128
-        )
+    # Bound the materialized per-class gather (the same discipline as
+    # spmm_tiled's K-slabbing).
+    k_slab = _k_slab(aplan.num_slots, K)
+    if k_slab is not None:
         outs = [
             spmm_minmax_aligned(
                 aplan, data, B[:, k0 : k0 + k_slab], m, reduce=reduce,
@@ -710,7 +291,7 @@ def spmm_minmax_vjp_aligned(
     op: str,
     ties: Array,
 ):
-    """Kernel-free max/min VJP over the transpose's row-aligned layout.
+    """Max/min VJP over the transpose's row-aligned layout.
 
     Replaces phase 2 of :func:`spmm_minmax_vjp_tiled` when the transpose
     plan carries an aligned layout and the forward emitted tie counts:
@@ -719,8 +300,6 @@ def spmm_minmax_vjp_aligned(
     costing a per-slot gather, and the per-column reduction is the same
     reshape-sum + inverse-permutation `take` as the aligned forward —
     ONE scattered gather total (the (out | g/ties) table by A-row).
-    Measured on pubmed (round 5): the 3-gather + Pallas-reduce phase 2
-    at 0.58-0.65 ms becomes ~0.3-0.45 ms.
 
     Returns ``(grad_data_csc | None, grad_B)`` — the same contract as
     :func:`spmm_minmax_vjp_tiled`.
@@ -749,10 +328,9 @@ def spmm_minmax_vjp_aligned(
     c0 = 0
     for s0, s1, W in l0.class_slices:
         ncs = (s1 - s0) // W
-        # One gather PER CLASS (not one big one sliced 9 ways): XLA then
-        # fuses each gather into its class's reshape-sum consumer instead
-        # of materializing an (S, 2K) intermediate — measured 1.55 vs
-        # 1.37 ms fwd+bwd at K=128 with the monolithic gather.
+        # One gather PER CLASS (not one big one sliced per class): XLA
+        # can then fuse each gather into its class's reshape-sum consumer
+        # instead of materializing an (S, 2K) intermediate.
         og_c = jnp.take(og_ext, l0.idx[s0:s1], axis=0)
         val = (
             None if csc_ext is None
@@ -792,93 +370,39 @@ def spmm_minmax_vjp_aligned(
     grad_B = jnp.take(all_cand, aplan_t.inv_map, axis=0)[:n_B]
     gd = None
     if gd_slots is not None:
-        # Barrier: XLA:TPU intermittently miscompiles scatters whose
-        # update operand is a fused product of gathers (see
-        # ops/reference.spmm_max_vjp_edges).
-        flat = jax.lax.optimization_barrier(jnp.concatenate(gd_slots))
+        flat = jnp.concatenate(gd_slots)
         gd = jnp.zeros((nnz + 1,), jnp.float32).at[l0.src].set(flat)[:nnz]
     return gd, grad_B
-
-
-def stream_plan_stats(plan: TiledSpmmPlan, K: int, item: int = 4):
-    """(slots_total, n_slabs) the stream kernel would run at width K —
-    inputs to the implementation-bound roofline
-    (`utils/profiling.spmm_stream_roofline`)."""
-    slots = plan.num_slots
-    slots_max = max(p.num_slots for p in plan.parts)
-    n_slabs = 1
-    if slots_max * item * K > _STREAM_BUDGET and K > 128:
-        k_slab = max(128, (_STREAM_BUDGET // (slots_max * item) // 128) * 128)
-        n_slabs = -(-K // k_slab)
-    return slots, n_slabs
 
 
 def edge_segment_reduce(
     plan: TiledSpmmPlan,
     vals: Array,
     op: str = "sum",
-    *,
-    interpret: Optional[bool] = None,
 ) -> Array:
-    """Per-row reduction of per-edge values through the stream kernel.
+    """Per-row reduction of per-edge values through the slot layout.
 
     vals: (nnz, K) edge values in CSR order (K is typically small — e.g.
-    attention heads).  Returns (m, K).  This is the fast path for edge
-    softmax / attention normalizers: the slot permutation replaces the
-    descriptor-bound 1-D `jax.ops.segment_*` formulation, and the
-    reduction rides the VMEM-resident kernel.  Forward-only (callers
-    wrap in custom VJPs — the transpose of a segment-sum is just a
-    row-gather).
+    attention heads).  Returns (m, K).  Forward-only (callers wrap in
+    custom VJPs — the transpose of a segment-sum is just a row-gather).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     if vals.ndim != 2:
         raise ValueError(f"vals must be (nnz, K), got {vals.shape}")
-    K = vals.shape[1]
     m = plan.shape[0]
     vals32 = vals.astype(jnp.float32)
     outs = []
     for part in plan.parts:
-        K_pad, kt = _fit_kt(plan, K)
         contrib = jnp.take(vals32, part.src, axis=0)
-        if K_pad != K:
-            contrib = jnp.pad(contrib, ((0, 0), (0, K_pad - K)))
         out_p = _reduce_part(
             contrib, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, kt, "trilo", interpret, op=op,
-            max_run=part.max_run if op in ("max", "min") else 0,
-            fold=getattr(part, "fold", 1),
+            part.rows_per_block, op=op,
         )
         outs.append(out_p[: part.m_part])
     out = outs[0] if len(outs) == 1 else jnp.concatenate(outs, 0)
-    out = out[:m, :K]
+    out = out[:m]
     if op in ("max", "min"):
         out = jnp.where(jnp.isfinite(out), out, 0.0)
     return out.astype(vals.dtype)
-
-
-def _fit_kt(plan: TiledSpmmPlan, K: int, k_tile: int = 512):
-    """(K_pad, kt): feature padding + per-pass tile width such that the
-    largest part's resident accumulator stays within the VMEM budget
-    (single-buffered at every K tile — each tile is its own pallas_call
-    with a static offset)."""
-    m_pad_max = max(p.m_pad for p in plan.parts)
-    budget_rows = (64 * 1024 * 1024) // max(m_pad_max * 4, 1)
-    kt_max = min(k_tile, max(128, (budget_rows // 128) * 128))
-    kt_max = max(128, (kt_max // 128) * 128)
-    if K <= kt_max:
-        return K, K
-    K_pad = _round_up(K, 128)
-    kt = min(kt_max, K_pad)
-    while K_pad % kt:
-        kt -= 128
-    return K_pad, kt
-
-
-def _pad_cols(X: Array, K_pad: int) -> Array:
-    return X if X.shape[1] == K_pad else jnp.pad(
-        X, ((0, 0), (0, K_pad - X.shape[1]))
-    )
 
 
 def _part_rows_slice(part: TiledPartPlan, X: Array) -> Array:
@@ -889,27 +413,18 @@ def _part_rows_slice(part: TiledPartPlan, X: Array) -> Array:
     return Xp
 
 
-def _phys_order(part: TiledPartPlan, arr2d: Array) -> Array:
-    """(C, E) chunk-major -> flat PHYSICAL slot order (fold-aware)."""
-    F = part.fold
-    if F <= 1:
-        return arr2d.reshape(-1)
-    C, E = arr2d.shape
-    return arr2d.reshape(C // F, F, E).swapaxes(1, 2).reshape(-1)
-
-
 def _slot_rows(part: TiledPartPlan) -> Array:
     """Per-slot part-local output row (sentinel slots clamped in range)."""
-    rows = _phys_order(part, part.row_start[:, None] + part.local_rows)
+    rows = (part.row_start[:, None] + part.local_rows).reshape(-1)
     return jnp.minimum(rows, part.m_pad - 1)
 
 
 def _slot_valid(part: TiledPartPlan) -> Array:
-    return _phys_order(part, part.local_rows < part.rows_per_block)
+    return (part.local_rows < part.rows_per_block).reshape(-1)
 
 
 def _tile_gather(part: TiledPartPlan, X: Array) -> Array:
-    """Gather X rows per column tile (each gather hits a VMEM-sized slice)."""
+    """Gather X rows per column tile of the plan."""
     pieces = [
         jnp.take(X[col0 : col0 + ncols], part.lcols[s0:s1], axis=0)
         for col0, ncols, s0, s1 in part.tile_slices
@@ -927,7 +442,6 @@ def spmm_minmax_vjp_tiled(
     g: Array,
     op: str,
     *,
-    interpret: Optional[bool] = None,
     ties: Optional[Array] = None,
 ):
     """Gradients of max/min-reduce SpMM through the stream plans.
@@ -936,20 +450,17 @@ def spmm_minmax_vjp_tiled(
     order (callers permute back to CSR with the adjacency's ``perm``).
 
     Semantics match jnp.max's VJP (even tie-splitting), i.e. the XLA path
-    `ops/reference.spmm_max_vjp_edges` — but the two nnz×K reductions run
-    through the VMEM-resident stream kernel instead of XLA segment ops:
+    `ops/reference.spmm_max_vjp_edges`, with both nnz×K reductions in the
+    plans' slot order:
       1. ties(r,k) = #achieving edges — taken from the forward when it
-         ran with ``want_ties=True`` (the in-kernel pair-monoid count),
-         else recounted here: indicator stream over `plan`, sum-reduced
-         ("fast" mode is exact for 0/1 values);
+         ran with ``want_ties=True``, else recounted here: indicator
+         stream over `plan`, sum-reduced;
       2. grad_B(c,k) = Σ val·g/ties over achieving edges — weight stream
          over `plan_t` (edges grouped by column), sum-reduced.
     Achievement tests are bitwise-exact: contributions are recomputed with
-    the same f32 gather·scale as the forward kernel, whose scan/scatter
-    preserves exact f32 values.
+    the same f32 gather·scale as the forward, and max/min select exact
+    f32 values.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     K = B.shape[1]
     nnz = plan.nnz
     B32 = B.astype(jnp.float32)
@@ -957,24 +468,18 @@ def spmm_minmax_vjp_tiled(
     g32 = g.astype(jnp.float32)
 
     if ties is None:
-        # Phase 1: tie counts over the forward plan.  The 0/1 indicator
-        # streams as bf16 — exact for 0/1, and the "fast" reduce consumes
-        # bf16 on the MXU anyway — halving this pass's HBM bytes.
-        K_pad, kt = _fit_kt(plan, K)
-        Bp = _pad_cols(B32, K_pad)
-        outp = _pad_cols(out32, K_pad)
+        # Phase 1: tie counts over the forward plan.
         ties_parts = []
         for part in plan.parts:
-            contrib = _gather_part(part, data, Bp)
-            out_slot = jnp.take(_part_rows_slice(part, outp),
+            contrib = _gather_part(part, data, B32)
+            out_slot = jnp.take(_part_rows_slice(part, out32),
                                 _slot_rows(part), axis=0)
             ind = (
                 (contrib == out_slot) & _slot_valid(part)[:, None]
-            ).astype(jnp.bfloat16)
+            ).astype(jnp.float32)
             tp = _reduce_part(
                 ind, part.local_rows, part.row_start, part.m_pad,
-                part.rows_per_block, kt, "fast", interpret, op="sum",
-                fold=getattr(part, "fold", 1),
+                part.rows_per_block, op="sum",
             )
             ties_parts.append(tp[: part.m_part])
         ties = (
@@ -984,14 +489,9 @@ def spmm_minmax_vjp_tiled(
 
     # Phase 2: weight stream over the transpose plan.  g/ties is folded
     # into ONE row-space table up front, and [out | g/ties] tile-gathers
-    # as ONE combined column table (each extra per-slot gather is a full
-    # ~1.6ns/slot pass — table count, not width, is what a pass pays for).
+    # as ONE combined column table (one per-slot gather instead of two).
     g_over_ties = g32 / jnp.maximum(ties, 1.0)
-    K_pad_t, kt_t = _fit_kt(plan_t, K)
-    Bpt = _pad_cols(B32, K_pad_t)
-    og_tbl = jnp.concatenate(
-        [_pad_cols(out32, K_pad_t), _pad_cols(g_over_ties, K_pad_t)], axis=1
-    )
+    og_tbl = jnp.concatenate([out32, g_over_ties], axis=1)
     grad_parts = []
     gd = None if data is None else jnp.zeros((nnz + 1,), jnp.float32)
     for part in plan_t.parts:
@@ -999,31 +499,23 @@ def spmm_minmax_vjp_tiled(
             None if csc_data is None
             else jnp.take(csc_data, part.src, axis=0).astype(jnp.float32)
         )
-        b_slot = jnp.take(_part_rows_slice(part, Bpt), _slot_rows(part),
+        b_slot = jnp.take(_part_rows_slice(part, B32), _slot_rows(part),
                           axis=0)
         contrib = b_slot if vals_slot is None else b_slot * vals_slot[:, None]
         og = _tile_gather(part, og_tbl)
-        out_slot = og[:, :K_pad_t]
-        gt_slot = og[:, K_pad_t:]
+        out_slot = og[:, :K]
+        gt_slot = og[:, K:]
         valid = _slot_valid(part)
         eq = (contrib == out_slot) & valid[:, None]
         w = jnp.where(eq, gt_slot, 0.0)
         stream = w if vals_slot is None else w * vals_slot[:, None]
-        # hilo (2 bf16 passes, ~1e-5 rel) suffices for gradients — the
-        # trilo third pass bought nothing at grad tolerances.
         gb = _reduce_part(
             stream, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, kt_t, "hilo", interpret, op="sum",
-            fold=getattr(part, "fold", 1),
+            part.rows_per_block, op="sum",
         )
         grad_parts.append(gb[: part.m_part])
         if gd is not None:
-            # Barrier: XLA:TPU intermittently miscompiles scatters whose
-            # update operand is a fused product of gathers (see
-            # ops/reference.spmm_max_vjp_edges).
-            gd_slot = jax.lax.optimization_barrier(
-                jnp.sum(w * b_slot, axis=-1)
-            )
+            gd_slot = jnp.sum(w * b_slot, axis=-1)
             gd = gd.at[jnp.where(valid, part.src, nnz)].set(gd_slot)
     grad_B = (
         grad_parts[0] if len(grad_parts) == 1
@@ -1039,15 +531,12 @@ def sddmm_tiled(
 ) -> Array:
     """SDDMM over the stream plan's slot layout: out[e] = D1[row_e]·D2[col_e].
 
-    Pure XLA — both gathers hit VMEM-sized tables (D1 sliced per row part,
-    D2 per column tile), sidestepping the ~10ns/row HBM descriptor wall of
-    the naive two-gather formulation (`ops/reference.sddmm_xla`); the
-    per-edge K-reduction streams on the VPU.  Returns CSR-ordered edge
-    values.  Round 5: the slot->edge return trip rides the plan's
-    host-precomputed inverse map (`TiledPartPlan.edge_slot`) as a `take`
-    + concat — each part owns a contiguous CSR edge range — instead of
-    the ~6 ns/edge scalar back-scatter; plans without the map (built
-    before round 5 or hand-constructed) keep the scatter.
+    Both gathers read per-part / per-tile slices (D1 sliced per row part,
+    D2 per column tile).  Returns CSR-ordered edge values: the slot->edge
+    return trip rides the plan's host-precomputed inverse map
+    (`TiledPartPlan.edge_slot`) as a `take` + concat — each part owns a
+    contiguous CSR edge range; hand-built plans without the map fall back
+    to a scatter.
     """
     nnz = plan.nnz
     K = D1.shape[1]

@@ -185,18 +185,8 @@ class SAGEStock:
                 h = dropout(sub, h, self.dropout_rate, training)
             if self.aggregator == "pool":
                 pre = jax.nn.relu(dense_apply(p["pool"], h))
-                # optimization_barrier: same XLA:TPU miscompile class as
-                # ops/reference.spmm_max_vjp_edges:170-176 — segment_max's
-                # backward scatter with a fused-gather update computes
-                # garbage gradients on TPU (measured O(1e5) error vs CPU;
-                # the un-barriered model plateaus at class-prior accuracy).
-                # Materializing the gathered operand blocks the fusion;
-                # the math is unchanged, so this stays a fair "stock ops"
-                # baseline.
                 agg = jax.ops.segment_max(
-                    jax.lax.optimization_barrier(
-                        jnp.take(pre, cols, axis=0)
-                    ),
+                    jnp.take(pre, cols, axis=0),
                     rows, num_segments=m,
                 )
                 agg = jnp.where(jnp.isfinite(agg), agg, 0.0)

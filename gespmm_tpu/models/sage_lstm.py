@@ -3,13 +3,13 @@
 Completes the `--aggregator-type` surface of the reference's SAGE benchmark
 (`dgl-custom/benchmark/sage/sage_dgl.py:181-182` exposes mean/gcn/pool/
 lstm via stock DGL SAGEConv).  Unlike the SpMM-reducible aggregators, LSTM
-aggregation is order-sensitive and per-node recurrent; the TPU-native
-formulation is:
+aggregation is order-sensitive and per-node recurrent; the formulation
+here is:
 
   * a padded neighbor table (n, D_pad) built once per graph (host-side) —
     static shapes, mask for real neighbors;
   * one `lax.scan` over the neighbor axis running a batched LSTM cell for
-    ALL nodes at once (n-way batch saturates the VPU/MXU), with masked
+    ALL nodes at once (an n-row batch per matmul), with masked
     state updates so shorter neighborhoods freeze at their final state.
 
 Degree capping (`max_neighbors`) bounds D_pad on power-law graphs —

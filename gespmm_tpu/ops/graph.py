@@ -99,13 +99,12 @@ def _edge_softmax_xla(rows, logits2d, m):
 
 @jax.custom_vjp
 def _edge_softmax_core(adj: Adjacency, logits2d: Array) -> Array:
-    """Row-wise softmax of (nnz, K) edge values, stream-kernel backed.
+    """Row-wise softmax of (nnz, K) edge values.
 
-    When the adjacency carries a tiled stream plan, the row-max and the
-    normalizer run as ONE stream-reduce pass each (slot-permuted 2-D
-    layout through the VMEM-resident kernel) instead of 1-D nnz-length
-    `segment_*` ops — the GAT wall identified in round 1 (~1ms per 1-D
-    segment op on pubmed).
+    When the adjacency carries a tiled plan, the row-max and the
+    normalizer each run as one slot-order reduction
+    (`kernels/spmm_stream.edge_segment_reduce`); otherwise as XLA segment
+    ops keyed by the per-nonzero row ids.
     """
     from gespmm_tpu.sparse.partition import TiledSpmmPlan
     from gespmm_tpu.sparse.formats import expand_indptr
@@ -133,7 +132,7 @@ def _edge_softmax_fwd(adj, logits2d):
 def _edge_softmax_bwd(res, g):
     # Softmax Jacobian: dl = alpha ⊙ (g - rowsum(alpha ⊙ g)[row]) — the
     # rank-1 correction needs exactly one more per-row reduction, which
-    # again rides the stream kernel when a plan is present.
+    # again runs in slot order when a plan is present.
     from gespmm_tpu.sparse.partition import TiledSpmmPlan
 
     from gespmm_tpu.sparse.formats import expand_indptr
@@ -161,8 +160,8 @@ def edge_softmax(adj: Adjacency, logits: Array) -> Array:
     """Per-destination-row softmax over edge logits (attention precursor).
 
     Not in the reference's op set, but the canonical consumer of SDDMM
-    (BASELINE.json benchmarks SDDMM as an "edge-softmax/attention
-    precursor"); provided so attention-style models compose from our
+    (an edge-softmax/attention precursor); provided so attention-style
+    models compose from our
     primitives.  logits: (nnz,) or (nnz, heads) in CSR order; softmax
     within each destination row, per head.  Differentiable (custom VJP:
     one stream-reduce per direction instead of chained segment ops).
@@ -244,7 +243,7 @@ def _additive_logits_fwd(adj, src_score, dst_score):
 
 def _additive_logits_bwd(adj, g):
     # grad_src[r] = Σ_{e: row=r} g_e ; grad_dst[c] = Σ_{e: col=c} g_e —
-    # per-node segment sums riding the stream kernel on plan / plan_t.
+    # per-node segment sums, in slot order on plan / plan_t when present.
     from gespmm_tpu.sparse.partition import TiledSpmmPlan
 
     g2 = g[:, None] if g.ndim == 1 else g
@@ -275,10 +274,9 @@ def additive_attention_logits(
     """Per-edge additive-attention logits: e = src[row_e] + dst[col_e].
 
     The GATv1 decomposition — a rank-2 SDDMM in disguise, but expressed
-    directly it is two VMEM-fast gathers forward and two per-node
-    segment sums backward (stream-kernel passes when plans exist),
-    instead of a generic SDDMM whose VJP runs two K=2 SpMMs (measured
-    ~6 ms/layer on pubmed — the round-2 GAT wall).
+    directly it is two gathers forward and two per-node segment sums
+    backward (slot-order reductions when plans exist), instead of a
+    generic SDDMM whose VJP runs two K=2 SpMMs.
     ``src_score``/``dst_score``: (m,) / (n,) or (m, H) / (n, H).
     """
     if isinstance(adj, CSR):

@@ -75,7 +75,7 @@ class AdjacencyMatrix:
     no call-site changes:
 
         A = AdjacencyMatrix.from_bcoo(bcoo_mat)   # or .from_csr(csr)
-        out = A @ x                                # stream kernel + VJP
+        out = A @ x                                # spmm(method="auto") + VJP
         grad = jax.grad(lambda x: f(A @ x))(x)     # transpose-paired bwd
 
     Registered as a pytree, so it passes through jit/grad/vmap like any

@@ -3,7 +3,7 @@
 These are the "fallback dispatch" tier — the role cuSPARSE plays in the
 reference (`dgl-custom/binary_reduce_sum.cu:83-143`): always-correct,
 compiler-scheduled implementations that (a) serve as the correctness oracle
-for the Pallas kernels, (b) handle dtypes/backends the hand kernels don't,
+for the Pallas kernel, (b) handle dtypes/backends the hand kernel doesn't,
 and (c) run on CPU for the virtual-mesh distributed tests.
 
 Formulation: gather rows of the dense operand with `take`, scale by edge
@@ -13,7 +13,7 @@ shapes are static (nnz is baked per graph, exactly as the reference
 specializes kernels per matrix).
 
 All functions here operate on raw arrays (not containers) so they can be
-called from inside `shard_map` bodies and Pallas fallbacks alike.
+called from inside `shard_map` bodies and kernel fallbacks alike.
 """
 
 from __future__ import annotations
@@ -29,37 +29,6 @@ Array = jax.Array
 # (`binary_reduce_sum.cu`) and max (`binary_reduce_max.cu`) kernel families,
 # plus mean/min which DGL exposes at the same layer.
 REDUCTIONS = ("sum", "max", "min", "mean")
-
-# Single-gather formulations (one jnp.take over ALL nnz indices feeding a
-# segment-reduce or scatter-add) reproducibly FAULT the TPU worker at
-# rmat20 scale — 31.4M edges kills the process, not the program
-# (bench_results/spmm_sweep_errors.log; repro: scripts/rmat20_fault_repro.py).
-# The largest scale measured healthy is rmat18 (7.6M edges, K=512).  Guard
-# the tiers at a conservative threshold so a library user cannot hard-fault
-# a shared chip by accident — the defensive-allocation spirit of the
-# reference's OOM-halving retry (`spmm_test.cu:619-634`), applied to the
-# failure mode TPU actually has.  Override (at your own risk / to probe a
-# fixed runtime): set GESPMM_UNSAFE_XLA_SEGMENT=1.
-XLA_SEGMENT_NNZ_LIMIT = 16 * 1024 * 1024
-
-
-def _check_segment_scale(nnz: int, what: str) -> None:
-    import os
-
-    if (
-        nnz > XLA_SEGMENT_NNZ_LIMIT
-        and jax.default_backend() == "tpu"
-        and not os.environ.get("GESPMM_UNSAFE_XLA_SEGMENT")
-    ):
-        raise ValueError(
-            f"{what} over {nnz} nonzeros exceeds the {XLA_SEGMENT_NNZ_LIMIT}"
-            " guard: single-gather XLA formulations reproducibly FAULT the"
-            " TPU worker process at 31.4M edges (rmat20; see"
-            " scripts/rmat20_fault_repro.py). Use method='tiled' (the"
-            " stream kernel measures fine at this scale) or set"
-            " GESPMM_UNSAFE_XLA_SEGMENT=1 to bypass."
-        )
-
 
 def _gather_scale(
     indices: Array, data: Optional[Array], B: Array
@@ -89,7 +58,6 @@ def spmm_rows_xla(
     """
     if reduce not in REDUCTIONS:
         raise ValueError(f"reduce must be one of {REDUCTIONS}, got {reduce!r}")
-    _check_segment_scale(int(indices.shape[0]), "spmm_rows_xla")
     contrib = _gather_scale(indices, data, B)
     acc_dtype = jnp.promote_types(contrib.dtype, jnp.float32)
     contrib32 = contrib.astype(acc_dtype)
@@ -198,13 +166,7 @@ def spmm_max_vjp_edges(
     ties_rows = jnp.take(ties, rows, axis=0)
     weight = is_max / jnp.maximum(ties_rows, 1.0)
     g_rows = jnp.take(g, rows, axis=0).astype(acc)
-    # optimization_barrier: XLA:TPU (v5e, 2026-08) intermittently
-    # miscompiles a scatter-add whose update operand is a FUSED product
-    # of row gathers (observed: grad_B off by O(row degree) on ~90% of
-    # rows, flaky across compilations of the same jaxpr).  Materializing
-    # the per-edge cotangents before the consuming scatter sidesteps the
-    # bad fusion; cost is one nnz*K stream, negligible vs the scatter.
-    return jax.lax.optimization_barrier(g_rows * weight)
+    return g_rows * weight
 
 
 def spmm_best_xla(
@@ -215,22 +177,9 @@ def spmm_best_xla(
     reduce: str = "sum",
     rows: Optional[Array] = None,
 ) -> Array:
-    """K-heuristic XLA dispatch (measured on v5e, ≙ the reference's K-based
-    kernel choice at `spmm_kernel.cu:186-206`): scattered row fetches cost
-    ~28ns each regardless of K, and for 16 <= K <= 64 the scatter-add
-    formulation shaves ~5-10% over gather+segment-sum; outside that window
-    the sorted segment reduction wins."""
-    from gespmm_tpu.sparse.formats import expand_indptr
-
+    """The plain XLA SpMM: gather the rows of B, then a sorted segment
+    reduction over the (precomputed, when given) per-nonzero row ids."""
     m = indptr.shape[0] - 1
-    if (
-        reduce == "sum"
-        and 16 <= B.shape[-1] <= 64
-        and jax.default_backend() == "tpu"
-    ):
-        if rows is None:
-            rows = expand_indptr(indptr, indices.shape[0])
-        return spmm_scatter_xla(rows, indices, data, B, m)
     if rows is not None:
         return spmm_rows_xla(rows, indices, data, B, m, reduce=reduce)
     return spmm_xla(indptr, indices, data, B, reduce=reduce)
@@ -247,11 +196,10 @@ def spmm_scatter_xla(
 
     The XLA expression of the Gunrock baseline's per-edge atomicAdd
     (`gunrock-test/app/spmm/spmm_enactor.cuh:92-105`) — kept as a benchmark
-    tier so the gather-vs-scatter comparison the GE-SpMM paper makes on GPU
-    can be reproduced on TPU (scatter lowers to XLA scatter-add instead of
-    segment-sum's sorted reduction).
+    tier for the gather-vs-scatter comparison the GE-SpMM paper makes
+    (scatter lowers to XLA scatter-add instead of segment-sum's sorted
+    reduction).
     """
-    _check_segment_scale(int(indices.shape[0]), "spmm_scatter_xla")
     contrib = _gather_scale(indices, data, B)
     acc = jnp.promote_types(contrib.dtype, jnp.float32)
     out = jnp.zeros((m, B.shape[1]), acc)
@@ -259,11 +207,11 @@ def spmm_scatter_xla(
 
 
 # ---------------------------------------------------------------------------
-# Dense-MXU crossover baseline (the merge-spmm "third baseline" role)
+# Dense crossover baseline (the merge-spmm "third baseline" role)
 # ---------------------------------------------------------------------------
 
-# Densifying A costs m*n*4 bytes; cap it so a careless call cannot OOM the
-# chip (v5e: 16 GB HBM; 4 GB leaves room for B, C, and the caller).
+# Densifying A costs m*n*4 bytes; cap it so a careless call cannot exhaust
+# device memory (4 GB leaves room for B, C, and the caller).
 DENSE_BYTES_LIMIT = 4 << 30
 
 
@@ -275,15 +223,13 @@ def spmm_dense_xla(
     m: int,
     reduce: str = "sum",
 ) -> Array:
-    """Densify-and-matmul SpMM: A_dense @ B on the MXU.
+    """Densify-and-matmul SpMM: A_dense @ B as one dense matrix product.
 
     The third-baseline role of the reference's merge-spmm build
     (`compile.sh:5-13`, `run_test.sh:12-16`): a fundamentally different
-    formulation that quantifies where the sparse kernels stop paying.  On
-    an MXU machine the question is sharper than on GPU — the systolic
-    array runs dense f32 matmul at ~50 TF/s, so a graph only ~0.1% dense
-    (cora) may be cheaper to densify than to gather.  Scatter-builds the
-    dense A (one nnz-sized scatter, paid once per call), then one matmul.
+    formulation that quantifies where the sparse kernels stop paying.
+    Scatter-builds the dense A (one nnz-sized scatter, paid once per
+    call), then one matmul.
 
     Guards: m*n*4 bytes must be under DENSE_BYTES_LIMIT (raise, don't
     OOM) — the bench records the cell as guarded, the same observable as
@@ -296,20 +242,18 @@ def spmm_dense_xla(
     if dense_bytes > DENSE_BYTES_LIMIT:
         raise ValueError(
             f"dense A would be {dense_bytes/2**30:.1f} GiB "
-            f"(> {DENSE_BYTES_LIMIT / 2**30:.0f} GiB guard): the dense-MXU "
+            f"(> {DENSE_BYTES_LIMIT / 2**30:.0f} GiB guard): the dense "
             "tier is a small-graph crossover baseline, not a large-graph "
-            "path; use method='tiled'"
+            "path; use method='auto'"
         )
     vals = (
         jnp.ones(indices.shape, jnp.float32)
         if data is None else data.astype(jnp.float32)
     )
     A = jnp.zeros((m, n), jnp.float32).at[rows, indices].add(vals)
-    # Precision.HIGH = 3 bf16 MXU passes on TPU — the same f32-grade as
-    # the stream kernel's default "trilo" tier, so the crossover
-    # comparison is precision-for-precision fair (DEFAULT would be one
-    # bf16 pass ≙ mode="fast").
+    # HIGHEST keeps the product in float32 (no TF32 on the GPU), so the
+    # crossover is compared with the sparse paths at their precision.
     out = jnp.dot(A, B.astype(jnp.float32),
                   preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.HIGH)
+                  precision=jax.lax.Precision.HIGHEST)
     return out.astype(B.dtype)

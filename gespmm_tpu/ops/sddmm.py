@@ -6,8 +6,9 @@ pattern — the op surface of `pytorch-custom/sddmm.cpp:63-68` (`coo_sddmm`,
 natural VJP, which is a pair of SpMMs (grad_D1 = A(g) @ D2,
 grad_D2 = A(g)ᵀ @ D1) — the exact dual of SpMM's backward being an SDDMM.
 
-Dispatch mirrors ops/spmm.py: "auto" routes to the Pallas edge-chunk kernel
-on TPU, else the XLA gather-dot formulation.
+Dispatch: "auto" is the XLA gather-dot formulation (the fused gather + dot
+that GE-SpMM's `sddmm.cu` kernels hand-write); "tiled" computes it in the
+slot order of an `Adjacency`'s tiled plan.
 """
 
 from __future__ import annotations
@@ -34,12 +35,6 @@ class _SddmmConfig:
 def _forward(cfg: _SddmmConfig, rows, cols, D1, D2) -> Array:
     method = cfg.method
     if method == "auto":
-        # Measured on v5e: XLA's fused gather-dot wins outright (pubmed
-        # K=64: 0.15ms; the per-edge-DMA Pallas kernel measured 1.28ms
-        # across two rounds — scattered DMA is descriptor-issue-bound —
-        # and was deleted in round 4 per VERDICT r3; the slot-layout
-        # `tiled` tier in kernels/spmm_stream.sddmm_tiled remains the
-        # kernel alternative).
         method = "xla"
     if method != "xla":
         raise ValueError(
@@ -97,17 +92,13 @@ def sddmm_coo(
 
 def _sddmm_adj_forward(fwd: str, adj, D1, D2):
     if fwd == "tiled":
-        # Slot-layout SDDMM over the stream plan (an explicit tier: both
-        # gathers hit VMEM-sized tables, but the 1-D scatter restoring
-        # CSR edge order costs ~6ns/edge — measure per workload).
+        # Slot-layout SDDMM over the tiled plan (an explicit tier).
         from gespmm_tpu.kernels.spmm_stream import sddmm_tiled
 
         return sddmm_tiled(adj.plan, D1, D2)
-    # "auto"/"xla": the XLA gather-dot formulation (measured FASTER than
-    # the slot-layout tiled variant on the bundled corpus — XLA's take is
-    # already VMEM-fast for the common m*K <= ~36MB case).  The win of
-    # routing through the Adjacency is the backward: both gradient SpMMs
-    # ride the tiled stream kernel.
+    # "auto"/"xla": the XLA gather-dot formulation.  Routing through the
+    # Adjacency gives the backward: both gradient SpMMs go through
+    # `spmm(method="auto")` with the paired orderings.
     rows = (
         adj.rows
         if adj.rows is not None
@@ -127,7 +118,7 @@ def _sddmm_adj_fwd(fwd, adj, D1, D2):
 
 def _sddmm_adj_bwd(fwd, res, g):
     # Both gradients are SpMMs with g as edge values — routed through the
-    # public op so they ride the tiled stream kernel (plan / plan_t).
+    # public op, so they take whatever path auto picks.
     from gespmm_tpu.ops.spmm import spmm
 
     adj, D1, D2 = res
@@ -153,8 +144,9 @@ def sddmm(
     each edge's row by binary search (`computeUtil.h:11-28`), we expand the
     indptr once into row ids (cheap cumsum, fused by XLA).
 
-    When ``adj`` is an `Adjacency` carrying a tiled stream plan and method
-    is "auto"/"tiled", the VJP's two SpMMs ride the stream kernel.
+    When ``adj`` is an `Adjacency` carrying tiled plans and method is
+    "auto"/"tiled", the VJP's two SpMMs run through `spmm` on the paired
+    orderings.
     """
     from gespmm_tpu.ops.spmm import Adjacency
     from gespmm_tpu.sparse.partition import TiledSpmmPlan

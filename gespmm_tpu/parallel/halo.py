@@ -22,7 +22,8 @@ test mesh and the multi-chip dryrun require.)
 This is the collective re-expression of the Gunrock scatter pattern
 (`gunrock-test/app/spmm/spmm_enactor.cuh:92-105`): what the GPU baseline
 does with per-edge atomicAdd into remote destinations becomes one
-precomputed index exchange riding ICI.
+precomputed index exchange riding the interconnect (NCCL over NVLink on
+GPUs).
 
 Structure per shard (row slab p):
   A_p = [A_diag | A_halo]   — columns split by ownership:
@@ -33,16 +34,15 @@ Structure per shard (row slab p):
 The diagonal SpMM takes only B_p — it has NO data dependency on any
 exchange round by construction — which is the precondition XLA's
 latency-hiding scheduler needs to overlap it with the collective on
-hardware (on TPU the sync collective-permute is split into start/done
+hardware (the asynchronous collective-permute is split into start/done
 pairs and independent compute is scheduled between them; the virtual CPU
 mesh lowers a synchronous collective-permute, so overlap itself is not
 observable there and is NOT asserted — only the dependency structure
 is).  Backward is fully automatic for the XLA tier
 (gather/ppermute/concat all have transposes) and rides a custom-VJP
-tiled kernel pair for the stream tier — including edge-value gradients:
-edge values are RUNTIME arrays fetched through per-slot indices (round 3;
-they were baked into the plan at partition time), so sharded
-attention-style models can train on the stream kernel.
+pair over the tiled slot layout for the tiled tier — including
+edge-value gradients: edge values are RUNTIME arrays fetched through
+per-slot indices, so sharded attention-style models can train on it.
 
 Reduction monoids: sum/mean for both tiers; max/min on the XLA tier
 (identity-aware combine across the diag/halo split).
@@ -65,11 +65,6 @@ from gespmm_tpu.ops import reference as ref
 
 Array = jax.Array
 
-# The stream-reduce kernel keeps a (rows × 128-lane) f32 accumulator
-# resident in VMEM; this is the per-shard output-row ceiling it implies.
-_MAX_PART_ROWS = ((64 << 20) // (4 * 128) // 8) * 8
-
-
 # ---------------------------------------------------------------------------
 # Uniform per-shard tiled plans (one traced program serves all shards)
 # ---------------------------------------------------------------------------
@@ -86,9 +81,7 @@ class LocalTiledCfg:
     out_rows: int
     nnz_pad: int  # width of the per-shard edge-data array (src sentinel)
     with_vals: bool = False  # apply a runtime edge-value array?
-    mode: str = "trilo"
     heads: int = 1  # runtime edge values per edge (head-blocked B)
-    max_run: int = 0  # longest (tile, row) slot run (minmax scan bound)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -137,28 +130,12 @@ def _uniform_tiled_plans(
     """
     import types
 
-    from gespmm_tpu.sparse.partition import CHUNK_GROUP, build_tiled_plan
+    from gespmm_tpu.sparse.partition import build_tiled_plan, default_col_tile
 
-    if out_rows > _MAX_PART_ROWS:
-        raise ValueError(
-            f"local block of {out_rows} output rows exceeds the per-shard "
-            f"limit of {_MAX_PART_ROWS} rows (stream-kernel VMEM "
-            f"accumulator budget); use more shards"
-        )
-    total_nnz = sum(int(ind.shape[0]) for _, ind, _ in slabs)
     if col_tile is None:
-        col_tile = (
-            max(table_rows, 1)
-            if table_rows * 4 * k_hint <= (36 << 20)
-            else 16384
-        )
+        col_tile = default_col_tile(table_rows, k_hint)
     if rows_per_block is None:
-        n_tiles = max(-(-table_rows // col_tile), 1)
-        density = total_nnz / max(len(slabs) * out_rows * n_tiles, 1)
-        rows_per_block = int(
-            min(1024,
-                max(256, -(-int(1.6 * chunk_nnz / max(density, 1e-9)) // 8) * 8))
-        )
+        rows_per_block = max(-(-out_rows // 8) * 8, 8)
     E = int(chunk_nnz)
 
     plans = []
@@ -169,18 +146,8 @@ def _uniform_tiled_plans(
         )
         plan = build_tiled_plan(
             slab, col_tile=col_tile, rows_per_block=rows_per_block,
-            chunk_nnz=E, part_rows=1 << 62,
-            # The uniform-plan machinery below re-slices and re-pads the
-            # part's chunk runs across shards assuming the UNFOLDED slot
-            # layout; folding the distributed tier is future work.
-            fold=1, minmax_aligned=False,
+            chunk_nnz=E, part_rows=max(out_rows, 1), minmax_aligned=False,
         )
-        if len(plan.parts) != 1:
-            raise ValueError(
-                f"local block of {out_rows} rows split into "
-                f"{len(plan.parts)} parts; exceeds the per-shard limit of "
-                f"{_MAX_PART_ROWS} rows"
-            )
         plans.append(plan.parts[0])
 
     # Per column tile, pad every shard to the max chunk count.
@@ -196,10 +163,6 @@ def _uniform_tiled_plans(
                     cmax = max(cmax, (s1 - s0) // E)
         per_tile[t] = cmax
     C = sum(per_tile.values())
-    group = CHUNK_GROUP if C > 8 else 4
-    if C % group:
-        per_tile[tile_ids[-1]] += (-C) % group
-        C = sum(per_tile.values())
     S = C * E
     R = plans[0].rows_per_block
     m_pad = max(pp.m_pad for pp in plans)
@@ -250,7 +213,6 @@ def _uniform_tiled_plans(
         chunk_nnz=E,
         out_rows=out_rows,
         nnz_pad=nnz_pad,
-        max_run=max((pp.max_run for pp in plans), default=0),
     )
     arrays = LocalTiledArrays(
         lcols=jnp.asarray(lcols),
@@ -265,13 +227,13 @@ def _sliced_uniform_plans(
     slabs, out_rows: int, table_rows: int, nnz_pad: int,
     part_budget: Optional[int] = None, **kw,
 ):
-    """Split a block's OUTPUT rows into windows that fit the stream
-    kernel's VMEM accumulator budget, building one uniform plan per
-    window — the multi-part generalization (VERDICT r3 #10) of the
-    single-part `_uniform_tiled_plans`.  Returns (cfgs, arrs) tuples of
-    equal length; window i owns output rows [i·w, min((i+1)·w, out_rows)).
+    """Split a block's OUTPUT rows into windows of at most ``part_budget``
+    rows (None: one window), building one uniform plan per window — the
+    multi-part generalization of the single-part `_uniform_tiled_plans`.
+    Returns (cfgs, arrs) tuples of equal length; window i owns output rows
+    [i·w, min((i+1)·w, out_rows)).
     """
-    budget = part_budget if part_budget is not None else _MAX_PART_ROWS
+    budget = part_budget if part_budget is not None else max(out_rows, 1)
     if out_rows <= budget:
         cfg, arr = _uniform_tiled_plans(slabs, out_rows, table_rows,
                                         nnz_pad, **kw)
@@ -318,20 +280,6 @@ def _gather_slots(cfg: LocalTiledCfg, lcols, B32):
     return pieces[0] if len(pieces) == 1 else jnp.concatenate(pieces, 0)
 
 
-def _fit_kt_local(cfg: LocalTiledCfg, K: int):
-    from gespmm_tpu.kernels.spmm_stream import _round_up
-
-    budget_rows = (64 * 1024 * 1024) // max(cfg.m_pad * 4, 1)
-    kt_max = max(128, (min(512, budget_rows) // 128) * 128)
-    if K <= kt_max:
-        return K, K
-    K_pad = _round_up(K, 128)
-    kt = kt_max
-    while K_pad % kt:
-        kt -= 128
-    return K_pad, kt
-
-
 def _block_contrib(cfg: LocalTiledCfg, lcols, src, edata, B32):
     """Per-slot contribution stream: tile-gather of B32 rows, scaled by
     runtime edge values fetched through ``src`` when the cfg carries
@@ -356,31 +304,24 @@ def _block_contrib(cfg: LocalTiledCfg, lcols, src, edata, B32):
 
 def _tiled_apply(cfg: LocalTiledCfg, lcols, local_rows, row_start, src,
                  edata, B):
-    """One shard's stream-reduce SpMM over its uniform plan slice.
+    """One shard's tiled SpMM over its uniform plan slice.
 
     ``edata``: (nnz_pad,) runtime edge values in the shard's local edge
     order, fetched per slot through ``src`` — or ignored when the cfg
     says the block is binary."""
     from gespmm_tpu.kernels.spmm_stream import _reduce_part
 
-    interpret = jax.default_backend() != "tpu"
-    K = B.shape[1]
-    K_pad, kt = _fit_kt_local(cfg, K)
-    B32 = B.astype(jnp.float32)
-    if K_pad != K:
-        B32 = jnp.pad(B32, ((0, 0), (0, K_pad - K)))
-    contrib = _block_contrib(cfg, lcols, src, edata, B32)
+    contrib = _block_contrib(cfg, lcols, src, edata, B.astype(jnp.float32))
     out = _reduce_part(
         contrib, local_rows, row_start, cfg.m_pad, cfg.rows_per_block,
-        kt, cfg.mode, interpret, op="sum",
+        op="sum",
     )
-    return out[: cfg.out_rows, :K].astype(B.dtype)
+    return out[: cfg.out_rows].astype(B.dtype)
 
 
 def _apply_slices(cfgs, arrs, edata, B):
-    """Concatenate the per-window stream SpMMs of a (possibly multi-part)
-    block.  One window for blocks within the VMEM accumulator budget;
-    several when the shard exceeds it (VERDICT r3 #10)."""
+    """Concatenate the per-window SpMMs of a (possibly multi-window)
+    block."""
     outs = [
         _tiled_apply(c, a.lcols, a.local_rows, a.row_start, a.src, edata, B)
         for c, a in zip(cfgs, arrs)
@@ -441,9 +382,6 @@ def _local_tiled_bwd(cfgs_f, cfgs_b, res, g):
         else:
             prod = jnp.sum(b_slot * g_slot, axis=-1)
         valid = (af.local_rows < R).reshape(-1)
-        # Barrier: XLA:TPU intermittently miscompiles scatters whose
-        # update operand is a fused product of gathers (see ops/reference).
-        prod = jax.lax.optimization_barrier(prod)
         gd = gd.at[jnp.where(valid, af.src, cfg_f.nnz_pad)].set(prod)
     grad_edata = gd[: edata.shape[0]].astype(edata.dtype)
     return zeros + (grad_edata, grad_B)
@@ -458,21 +396,15 @@ _local_tiled.defvjp(_local_tiled_fwd, _local_tiled_bwd)
 
 
 def _minmax_block_raw(op, cfg, arr, edata, B, want_ties):
-    """One block window's raw max/min reduction (±inf identities kept)
-    through the stream kernel; optionally with the in-kernel tie counts."""
+    """One block window's raw max/min reduction (±inf identities kept),
+    optionally with the tie counts."""
     from gespmm_tpu.kernels.spmm_stream import _reduce_part
 
-    interpret = jax.default_backend() != "tpu"
-    K = B.shape[1]
-    K_pad, kt = _fit_kt_local(cfg, K)
-    B32 = B.astype(jnp.float32)
-    if K_pad != K:
-        B32 = jnp.pad(B32, ((0, 0), (0, K_pad - K)))
-    contrib = _block_contrib(cfg, arr.lcols, arr.src, edata, B32)
+    contrib = _block_contrib(cfg, arr.lcols, arr.src, edata,
+                             B.astype(jnp.float32))
     return _reduce_part(
         contrib, arr.local_rows, arr.row_start, cfg.m_pad,
-        cfg.rows_per_block, kt, "trilo", interpret, op=op,
-        want_ties=want_ties, max_run=cfg.max_run,
+        cfg.rows_per_block, op=op, want_ties=want_ties,
     )
 
 
@@ -547,23 +479,18 @@ def _minmax_bwd_block(op, cfg_b, arr_b, edata, B, out_tbl, gt_tbl):
     """
     from gespmm_tpu.kernels.spmm_stream import _reduce_part
 
-    interpret = jax.default_backend() != "tpu"
     K = B.shape[1]
-    K_pad, kt = _fit_kt_local(cfg_b, K)
-    pad_k = lambda X: (  # noqa: E731
-        X if X.shape[1] == K_pad else jnp.pad(X, ((0, 0), (0, K_pad - X.shape[1])))
-    )
     # ``B`` here is the WINDOW's slice of the block's gather table (the
     # transpose window's output rows are window-local).
-    B32 = pad_k(B.astype(jnp.float32))
+    B32 = B.astype(jnp.float32)
     if B32.shape[0] < cfg_b.m_pad:
         B32 = jnp.pad(B32, ((0, cfg_b.m_pad - B32.shape[0]), (0, 0)))
-    # ONE combined row-space table per pass: [out | g/ties] (each extra
-    # per-slot gather is a full pass — table count is what a pass pays).
-    og = jnp.concatenate([pad_k(out_tbl), pad_k(gt_tbl)], axis=1)
+    # ONE combined row-space table per pass: [out | g/ties] (one per-slot
+    # gather instead of two).
+    og = jnp.concatenate([out_tbl, gt_tbl], axis=1)
     og_slot = _gather_slots(cfg_b, arr_b.lcols, og)
-    out_slot = og_slot[:, :K_pad]
-    gt_slot = og_slot[:, K_pad:]
+    out_slot = og_slot[:, :K]
+    gt_slot = og_slot[:, K:]
     slot_rows = jnp.minimum(
         (arr_b.row_start[:, None] + arr_b.local_rows).reshape(-1),
         cfg_b.m_pad - 1,
@@ -582,14 +509,12 @@ def _minmax_bwd_block(op, cfg_b, arr_b, edata, B, out_tbl, gt_tbl):
     stream = w if v is None else w * v[:, None]
     gb = _reduce_part(
         stream, arr_b.local_rows, arr_b.row_start, cfg_b.m_pad,
-        cfg_b.rows_per_block, kt, "trilo", interpret, op="sum",
+        cfg_b.rows_per_block, op="sum",
     )
-    grad_B = gb[: cfg_b.out_rows, :K].astype(B.dtype)
+    grad_B = gb[: cfg_b.out_rows].astype(B.dtype)
     prod_scatter = None
     if cfg_b.with_vals:
-        # Barrier: XLA:TPU intermittently miscompiles scatters whose
-        # update operand is a fused product of gathers (see ops/reference).
-        prod = jax.lax.optimization_barrier(jnp.sum(w * b_slot, axis=-1))
+        prod = jnp.sum(w * b_slot, axis=-1)
         prod_scatter = (jnp.where(valid, arr_b.src, cfg_b.nnz_pad), prod)
     return grad_B, prod_scatter
 

@@ -1,13 +1,16 @@
 """Device mesh construction and multi-host initialization.
 
 The reference is single-GPU with no collective layer (SURVEY §2.3); this
-module is the new capability: an ICI/DCN-aware `jax.sharding.Mesh` that the
-row-partitioned SpMM and the sharded train steps run on.
+module is the new capability: a `jax.sharding.Mesh` that the
+row-partitioned SpMM and the sharded train steps run on.  It is
+`jax.devices()` reshaped, which fits cards joined all to all (NVLink): every
+card reaches every other at the same rate, so the axes follow the
+algorithm alone.
 
 Axes convention:
   "data"  — graph-row partitioning (each device owns a slab of output rows
             and the matching slab of B rows); collectives: all_gather of B
-            forward, psum_scatter backward — riding ICI.
+            forward, psum_scatter backward (NCCL on GPUs).
   "model" — feature-dimension sharding (embarrassingly parallel for SpMM;
             dense layer weights are column-sharded).
 """
@@ -28,7 +31,7 @@ def maybe_distributed_init(
 ) -> None:
     """Initialize multi-host JAX if requested (no-op single-process).
 
-    Call once at program start on pod slices; mirrors
+    Call once at program start on multi-host runs; mirrors
     `jax.distributed.initialize` conventions.
     """
     if coordinator is None:

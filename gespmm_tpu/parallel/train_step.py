@@ -4,9 +4,9 @@ The multi-device training capability the single-GPU reference lacks
 (SURVEY §2.3): a full GCN training step jitted over a 2-D mesh —
 
   * "data" axis: graph rows partitioned; activations and labels
-    row-sharded; the SpMM exchanges ONLY the per-shard halo rows via a
-    precomputed padded all_to_all (`parallel.halo`), and the local SpMM
-    runs the differentiable stream-kernel tier (backward collectives are
+    row-sharded; the SpMM exchanges ONLY the per-shard halo rows via
+    precomputed `ppermute` rounds (`parallel.halo`), and the local SpMM
+    runs the differentiable tiled tier (backward collectives are
     autodiff-derived);
   * "model" axis: feature/hidden dims sharded; first-layer weights
     column-sharded, output-layer weights row-sharded (contraction inserts
@@ -64,8 +64,7 @@ def build_sharded_gcn(
 
     `train_step(params, opt_state, x, labels, mask)` is jitted over the
     mesh; `prepare_inputs` pads + shards node-indexed arrays.  The SpMM
-    is the halo-exchange formulation with the stream-kernel tier — the
-    flagship kernel runs inside the sharded train step.
+    is the halo-exchange formulation with the tiled tier.
     """
     data_axis = mesh.shape["data"]
     if csr.shape[0] != csr.shape[1]:
@@ -73,6 +72,14 @@ def build_sharded_gcn(
     hp = build_halo_partition(csr, data_axis, tiled=True)
     if hp.rpp != hp.cpp:
         raise ValueError("square adjacency must slab rows and columns alike")
+    # Per-shard stacked arrays go to their shard once, here, so the step
+    # moves no partition data.
+    hp = jax.tree.map(
+        lambda a: jax.device_put(a, NamedSharding(
+            mesh, P("data") if a.ndim and a.shape[0] == data_axis else P()
+        )),
+        hp,
+    )
     m_pad = hp.num_parts * hp.rpp
     n = csr.shape[0]
 
@@ -105,24 +112,31 @@ def build_sharded_gcn(
         )
         return x, labels, mask
 
-    def forward(params, x):
+    def forward(params, hp, x):
         h = x @ params["l1"]["w"] + params["l1"]["b"]
         h = halo_spmm(hp, h, mesh, reduce="mean")
         h = jax.nn.relu(h)
         logits = h @ params["l2"]["w"] + params["l2"]["b"]
         return halo_spmm(hp, logits, mesh, reduce="mean", model_axis=None)
 
-    def loss_fn(params, x, labels, mask):
-        lp = jax.nn.log_softmax(forward(params, x), axis=-1)
+    def loss_fn(params, hp, x, labels, mask):
+        lp = jax.nn.log_softmax(forward(params, hp, x), axis=-1)
         return masked_nll_loss(lp, labels, mask)
 
+    # The partition's arrays are a jit ARGUMENT: closed over, they would
+    # be compiled in as constants.
     @jax.jit
-    def train_step(params, opt_state, x, labels, mask):
-        loss, grads = jax.value_and_grad(loss_fn)(params, x, labels, mask)
+    def step_hp(params, opt_state, hp, x, labels, mask):
+        loss, grads = jax.value_and_grad(loss_fn)(params, hp, x, labels,
+                                                  mask)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss
 
+    def train_step(params, opt_state, x, labels, mask):
+        return step_hp(params, opt_state, hp, x, labels, mask)
+
+    train_step.jitted = step_hp  # (params, opt_state, hp, x, labels, mask)
     return train_step, (params, opt_state), prepare_inputs, hp
 
 
@@ -242,8 +256,7 @@ def build_sharded_gat(
 
     Returns (train_step, init_state, prepare_inputs, halo_partition).
     Attention alphas feed `halo_spmm`'s RUNTIME edge values, so the
-    stream-kernel tiled tier carries the weighted aggregate when plans
-    exist.
+    tiled tier carries the weighted aggregate when plans exist.
     """
     from gespmm_tpu.parallel.edge_ops import (
         halo_additive_logits, halo_edge_softmax,

@@ -1,14 +1,14 @@
 """Sparse matrix containers as JAX pytrees.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference framework (hgyhungry/ge-spmm) stores CSR as three raw device
 pointers handed to CUDA kernels (`spmm_test.cu:557-581`,
 `pytorch-custom/spmm.cpp:24-43`).  Here the containers are registered JAX
 pytrees so they flow through `jit` / `grad` / `shard_map` unchanged:
 
-  * ``indptr``/``indices`` are ``int32`` (TPU-native integer width; the
-    reference likewise asserts int32 at `spmm.cpp:33-38`).
+  * ``indptr``/``indices`` are ``int32`` (the reference likewise asserts
+    int32 at `spmm.cpp:33-38`).
   * ``data`` may be ``None`` — the "topology only / implicit 1.0" variant the
     reference implements as dedicated ``no_edge_value`` kernels
     (`pytorch-custom/spmm_kernel.cu:31-173`).  Keeping it ``None`` (static
@@ -137,7 +137,7 @@ class CSR:
         """Expand indptr to a per-nonzero row-id vector (the COO row array).
 
         Jittable; used by the segment-reduce reference path and by SDDMM's
-        CSR entry point — the TPU-native stand-in for the reference's
+        CSR entry point — the stand-in for the reference's
         per-warp binary search ``findRow`` (`computeUtil.h:11-28`).
         """
         return expand_indptr(self.indptr, self.nnz)
@@ -252,7 +252,7 @@ def csr_from_coo(coo: COO) -> CSR:
 def csr_to_csc(csr: CSR, return_permutation: bool = False):
     """CSR -> CSC via stable sort on column ids. Jittable.
 
-    TPU-native replacement for the reference's cuSPARSE-backed transform
+    Replacement for the reference's cuSPARSE-backed transform
     (`csr2cscKernel`, `spmm_kernel.cu:381-423`).  The returned permutation
     maps CSC edge order -> CSR edge order (``csc.data = csr.data[perm]``),
     which callers use to re-order edge gradients back to CSR order.

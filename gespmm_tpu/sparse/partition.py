@@ -1,30 +1,15 @@
-"""Row-block / nnz-chunk tile planner for the Pallas SpMM kernel.
+"""Host-side slot layouts for the tiled SpMM and the max/min reductions.
 
-TPU-native re-expression of the reference's two CUDA tricks (SURVEY §2.2):
+The tiled plan sorts each row part's edges by (column tile, row) and packs
+them into chunks of E slots whose rows fit a window of R output rows. The
+gather phase (`kernels/spmm_stream.py`) reads one slice of B per column
+tile; the reduce phase folds the slots into the part's output rows with a
+segment reduction keyed by ``row_start[c] + local_rows[c, j]``.
 
-  * Coalesced Row Caching (`spmm_test.cu:104-159`): a warp stages 32 nonzeros
-    of its row into shared memory, then streams dense rows coalesced.  Here,
-    each grid step owns a fixed-size chunk of E nonzeros belonging to one
-    block of R output rows; the chunk's column ids drive an async-DMA gather
-    of E rows of B from HBM into a VMEM buffer (double-buffered across grid
-    steps), and the per-chunk reduction becomes a single MXU matmul
-    P[R,E] @ G[E,K] where P scatters edge values to their local row.
-
-  * Coarse-grained Warp Merging (`spmm_test.cu:161-454`): reuse of staged
-    nonzeros across a wider feature tile.  Here each gathered chunk feeds the
-    full K-tile at once (the MXU naturally amortizes the gather across all
-    lanes), so "CF" generalizes to the K-tile width.
-
-  * The fixed `tile_row=8` + K-heuristic dispatch (`spmm_kernel.cu:186-206`)
-    becomes this *plan*: rows are grouped into blocks of R, each block's
-    nonzeros padded to a multiple of E, so every grid step is a static-shape
-    program.  Power-law mega-rows simply span many chunks of the same block
-    and accumulate in VMEM (the "row splitting" the GPU never needed).
-
-Plans are built once per graph on the host (NumPy) and carried in the
-`Adjacency` pytree; they depend only on the sparsity *structure*, never on
-edge values, so one plan serves every training step and every value of the
-(differentiable) edge weights.
+Plans are built once per graph on the host (NumPy, or the native packer in
+`native/graphio.cpp`) and carried in the `Adjacency` pytree; they depend
+only on the sparsity *structure*, never on edge values, so one plan serves
+every training step and every value of the (differentiable) edge weights.
 """
 
 from __future__ import annotations
@@ -37,307 +22,36 @@ import jax.numpy as jnp
 import numpy as np
 
 
-@jax.tree_util.register_pytree_node_class
-@dataclasses.dataclass(frozen=True)
-class SpmmPlan:
-    """Static-shape chunk layout for one sparsity structure.
-
-    Arrays (C = num_chunks, E = nnz per chunk, R = rows per block):
-      cols:       (C, E) int32 — column id per slot (pad slots -> 0)
-      local_rows: (C, E) int32 — row id within the block; pad slots -> R
-                  (sentinel outside [0, R) so padded slots contribute 0)
-      src:        (C, E) int32 — CSR edge index feeding each slot (pad -> 0)
-      block_ids:  (C,)   int32 — which row block each chunk accumulates into
-      first:      (C,)   int32 — 1 iff chunk is the first of its row block
-    Static: rows_per_block R, chunk_nnz E, shape (m, n), nnz, num_blocks.
-    """
-
-    cols: jax.Array
-    local_rows: jax.Array
-    src: jax.Array
-    block_ids: jax.Array
-    first: jax.Array
-    rows_per_block: int
-    chunk_nnz: int
-    shape: Tuple[int, int]
-    nnz: int
-    num_blocks: int
-
-    def tree_flatten(self):
-        arrays = (self.cols, self.local_rows, self.src, self.block_ids, self.first)
-        aux = (
-            self.rows_per_block,
-            self.chunk_nnz,
-            self.shape,
-            self.nnz,
-            self.num_blocks,
-        )
-        return arrays, aux
-
-    @classmethod
-    def tree_unflatten(cls, aux, arrays):
-        return cls(*arrays, *aux)
-
-    @property
-    def num_chunks(self) -> int:
-        return int(self.cols.shape[0])
-
-    @property
-    def padded_rows(self) -> int:
-        return self.num_blocks * self.rows_per_block
-
-    @property
-    def padding_ratio(self) -> float:
-        """Padded-slot overhead (wasted gather fraction)."""
-        total = self.num_chunks * self.chunk_nnz
-        return (total - self.nnz) / max(total, 1)
-
-    def chunk_data(self, data) -> jax.Array:
-        """Reorder per-edge values (CSR order) into (C, E) chunk layout.
-
-        Jittable; pad slots get 0 (they are additionally masked by the
-        local_rows sentinel, so a 0 here is belt-and-braces).
-        """
-        vals = jnp.take(data, self.src.reshape(-1), axis=0)
-        vals = vals.reshape(self.src.shape)
-        return jnp.where(self.local_rows < self.rows_per_block, vals, 0)
-
-
-def build_spmm_plan(
-    csr,
-    rows_per_block: int = 128,
-    chunk_nnz: int = 256,
-) -> SpmmPlan:
-    """Build the chunk plan for one CSR structure (host-side, NumPy).
-
-    rows_per_block (R): output rows owned by one accumulator block; must be a
-      multiple of 8 (fp32 sublane).
-    chunk_nnz (E): nonzeros gathered per grid step; controls DMA batch size.
-    Defaults are the measured v5e sweet spot for the per-row DMA kernel
-    (R=128/E=256: 14.4 ns/edge on rmat18 vs 16.3 at 64/64).
-    """
-    if rows_per_block % 8:
-        raise ValueError("rows_per_block must be a multiple of 8")
-    indptr = np.asarray(csr.indptr)
-    indices = np.asarray(csr.indices)
-    m, n = csr.shape
-    nnz = int(indices.shape[0])
-    R, E = rows_per_block, chunk_nnz
-
-    num_blocks = max((m + R - 1) // R, 1)
-    block_starts = indptr[np.minimum(np.arange(num_blocks) * R, m)]
-    block_ends = indptr[np.minimum((np.arange(num_blocks) + 1) * R, m)]
-    block_nnz = block_ends - block_starts
-    chunks_per_block = np.maximum((block_nnz + E - 1) // E, 1)
-    C = int(chunks_per_block.sum())
-
-    cols = np.zeros((C, E), np.int32)
-    local_rows = np.full((C, E), R, np.int32)
-    src = np.zeros((C, E), np.int32)
-    block_ids = np.zeros((C,), np.int32)
-    first = np.zeros((C,), np.int32)
-
-    # Per-edge row ids (vectorized indptr expansion).
-    rows_of_edge = np.repeat(np.arange(m, dtype=np.int32), np.diff(indptr))
-
-    chunk_offsets = np.concatenate([[0], np.cumsum(chunks_per_block)])
-    for b in range(num_blocks):
-        c0 = int(chunk_offsets[b])
-        cnt = int(block_nnz[b])
-        s = int(block_starts[b])
-        ncb = int(chunks_per_block[b])
-        block_ids[c0 : c0 + ncb] = b
-        first[c0] = 1
-        if cnt == 0:
-            continue
-        flat_cols = indices[s : s + cnt]
-        flat_rows = rows_of_edge[s : s + cnt] - b * R
-        flat_src = np.arange(s, s + cnt, dtype=np.int32)
-        padded = ncb * E
-        cols[c0 : c0 + ncb].reshape(-1)[:cnt] = flat_cols
-        local_rows[c0 : c0 + ncb].reshape(-1)[:cnt] = flat_rows
-        src[c0 : c0 + ncb].reshape(-1)[:cnt] = flat_src
-
-    return SpmmPlan(
-        cols=jnp.asarray(cols),
-        local_rows=jnp.asarray(local_rows),
-        src=jnp.asarray(src),
-        block_ids=jnp.asarray(block_ids),
-        first=jnp.asarray(first),
-        rows_per_block=R,
-        chunk_nnz=E,
-        shape=(m, n),
-        nnz=nnz,
-        num_blocks=num_blocks,
-    )
-
-
-@jax.tree_util.register_pytree_node_class
-@dataclasses.dataclass(frozen=True)
-class GroupedSpmmPlan:
-    """Group-deduplicated chunk layout (the locality-aware fast path).
-
-    Instead of one DMA per nonzero, each chunk gathers its DISTINCT aligned
-    G-row groups of B once (one DMA per group, G·K·4 bytes), and every edge
-    reads its row from the staged buffer through a slot index.  On
-    locality-reordered graphs (sparse/reorder.py) the dedup factor is ~2x+,
-    which halves the descriptor count — the binding resource for scattered
-    gathers on TPU (measured ~25-35ns/descriptor regardless of size below
-    ~4KB).
-
-    Arrays (C chunks, NG groups/chunk, E edges/chunk, S = NG*G slots):
-      groups:     (C, NG) int32 — aligned group ids (pad -> 0)
-      slots:      (C, E)  int32 — staged row per edge: pos(group)*G + col%G
-      local_rows: (C, E)  int32 — row within block (pad -> R sentinel)
-      src:        (C, E)  int32 — CSR edge index per slot (pad -> 0)
-      block_ids:  (C,)    int32
-      first:      (C,)    int32
-    """
-
-    groups: jax.Array
-    slots: jax.Array
-    local_rows: jax.Array
-    src: jax.Array
-    block_ids: jax.Array
-    first: jax.Array
-    rows_per_block: int
-    edges_per_chunk: int
-    groups_per_chunk: int
-    group_rows: int
-    shape: Tuple[int, int]
-    nnz: int
-    num_blocks: int
-
-    def tree_flatten(self):
-        arrays = (self.groups, self.slots, self.local_rows, self.src,
-                  self.block_ids, self.first)
-        aux = (self.rows_per_block, self.edges_per_chunk,
-               self.groups_per_chunk, self.group_rows, self.shape,
-               self.nnz, self.num_blocks)
-        return arrays, aux
-
-    @classmethod
-    def tree_unflatten(cls, aux, arrays):
-        return cls(*arrays, *aux)
-
-    @property
-    def num_chunks(self) -> int:
-        return int(self.groups.shape[0])
-
-    @property
-    def dedup_factor(self) -> float:
-        """Average edges served per gathered group slot (incl. padding)."""
-        return self.nnz / max(self.num_chunks * self.groups_per_chunk, 1)
-
-    def chunk_data(self, data) -> jax.Array:
-        vals = jnp.take(data, self.src.reshape(-1), axis=0)
-        vals = vals.reshape(self.src.shape)
-        return jnp.where(self.local_rows < self.rows_per_block, vals, 0)
-
-
-def build_grouped_plan(
-    csr,
-    rows_per_block: int = 64,
-    edges_per_chunk: int = 64,
-    groups_per_chunk: int = 32,
-    group_rows: int = 8,
-) -> "GroupedSpmmPlan":
-    """Greedy chunk packing under BOTH limits (edges <= E, groups <= NG)."""
-    if rows_per_block % 8:
-        raise ValueError("rows_per_block must be a multiple of 8")
-    indptr = np.asarray(csr.indptr)
-    indices = np.asarray(csr.indices)
-    m, n = csr.shape
-    nnz = int(indices.shape[0])
-    R, E, NG, G = rows_per_block, edges_per_chunk, groups_per_chunk, group_rows
-    num_blocks = max((m + R - 1) // R, 1)
-    rows_of_edge = np.repeat(np.arange(m, dtype=np.int32), np.diff(indptr))
-
-    chunks = []  # (block, groups list, edges: (local_row, slot, src))
-    for b in range(num_blocks):
-        s = int(indptr[min(b * R, m)])
-        e = int(indptr[min((b + 1) * R, m)])
-        pos = s
-        first_of_block = True
-        while pos < e or first_of_block:
-            gmap = {}
-            edges = []
-            while pos < e and len(edges) < E:
-                col = int(indices[pos])
-                gid = col // G
-                if gid not in gmap:
-                    if len(gmap) == NG:
-                        break
-                    gmap[gid] = len(gmap)
-                slot = gmap[gid] * G + col % G
-                edges.append((int(rows_of_edge[pos]) - b * R, slot, pos))
-                pos += 1
-            chunks.append((b, list(gmap.keys()), edges, first_of_block))
-            first_of_block = False
-
-    C = len(chunks)
-    # Shrink NG to the widest chunk actually produced: the kernel issues NG
-    # DMA descriptors per chunk unconditionally, so unused group slots cost
-    # real descriptors.
-    NG = max(max((len(gl) for _, gl, _, _ in chunks), default=1), 1)
-    groups = np.zeros((C, NG), np.int32)
-    slots = np.zeros((C, E), np.int32)
-    local_rows = np.full((C, E), R, np.int32)
-    src = np.zeros((C, E), np.int32)
-    block_ids = np.zeros((C,), np.int32)
-    first = np.zeros((C,), np.int32)
-    for c, (b, gl, edges, is_first) in enumerate(chunks):
-        block_ids[c] = b
-        first[c] = 1 if is_first else 0
-        groups[c, : len(gl)] = gl
-        for i, (lr, slot, sidx) in enumerate(edges):
-            local_rows[c, i] = lr
-            slots[c, i] = slot
-            src[c, i] = sidx
-
-    return GroupedSpmmPlan(
-        groups=jnp.asarray(groups),
-        slots=jnp.asarray(slots),
-        local_rows=jnp.asarray(local_rows),
-        src=jnp.asarray(src),
-        block_ids=jnp.asarray(block_ids),
-        first=jnp.asarray(first),
-        rows_per_block=R,
-        edges_per_chunk=E,
-        groups_per_chunk=NG,
-        group_rows=G,
-        shape=(m, n),
-        nnz=nnz,
-        num_blocks=num_blocks,
-    )
-
-
 # ---------------------------------------------------------------------------
-# Tiled stream plan: the "SpMM v2" layout (gather tiers + streaming reduce)
+# Tiled plan: edges sorted by (column tile, row), packed in chunks of E slots
 # ---------------------------------------------------------------------------
 
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class TiledPartPlan:
-    """Per-row-part layout for the stream-reduce SpMM.
+    """Per-row-part slot layout for the tiled SpMM.
 
     The part owns rows [row0, row0 + m_part) of the output.  Its edges are
-    sorted by (column tile, row); the XLA gather phase produces one
+    sorted by (column tile, row); the gather phase produces one
     contribution row per SLOT (slot order == this sorted order, padded so
-    each (tile, chunk) boundary is chunk-aligned), and the Pallas reduce
-    kernel folds slots into the part's VMEM-resident output.
+    each (tile, chunk) boundary is chunk-aligned), and the reduce phase
+    folds slots into the part's output rows.
 
     Arrays (S slots, C chunks of E slots):
       src:        (S,) int32 — CSR edge index feeding each slot (pad -> 0)
       lcols:      (S,) int32 — column local to the slot's tile (pad -> 0)
       local_rows: (C, E) int32 — row - row_start[c]; pad sentinel = R
       row_start:  (C,) int32 — 8-aligned window start, row_start+R <= m_pad
+      edge_slot:  (nnz_part,) int32 — inverse of ``src``: the slot feeding
+                  CSR edge edge0 + i (the part owns a contiguous CSR edge
+                  range, so slot-ordered per-edge results return to CSR
+                  order with one `take` + concat)
     Static:
       tile_slices: tuple of (col0, ncols, slot0, slot1) — one per column
         tile that has edges; gather phase does take(B[col0:col0+ncols],
         lcols[slot0:slot1]).
-      row0, m_part, m_pad, rows_per_block R, chunk_nnz E.
+      row0, m_part, m_pad, rows_per_block R, chunk_nnz E, edge0.
     """
 
     src: jax.Array
@@ -350,27 +64,14 @@ class TiledPartPlan:
     m_pad: int = 0
     rows_per_block: int = 0
     chunk_nnz: int = 0
-    # Longest (tile, row) slot run — bounds the max/min segmented scan's
-    # step count (0 = unknown: scan the whole window).
-    max_run: int = 0
-    # Inverse of `src` (round 5): edge_slot[e - edge0] = the slot feeding
-    # CSR edge e.  The part owns the CONTIGUOUS CSR edge range
-    # [edge0, edge0 + nnz_part) (parts split by row ranges), so slot-
-    # ordered per-edge results return to CSR order with one `take` +
-    # concat — replacing SDDMM's ~6 ns/edge scalar back-scatter.
     edge_slot: Optional[jax.Array] = None
     edge0: int = 0
-    # DMA-row fold (round 5): F consecutive chunks' slots interleave so
-    # the materialized stream's rows are F*K wide — see _fold_factor.
-    # Physical slot (g*E + j)*F + f <-> logical chunk (g*F + f) slot j.
-    fold: int = 1
 
     def tree_flatten(self):
         arrays = (self.src, self.lcols, self.local_rows, self.row_start,
                   self.edge_slot)
         aux = (self.tile_slices, self.row0, self.m_part, self.m_pad,
-               self.rows_per_block, self.chunk_nnz, self.max_run,
-               self.edge0, self.fold)
+               self.rows_per_block, self.chunk_nnz, self.edge0)
         return arrays, aux
 
     @classmethod
@@ -379,8 +80,7 @@ class TiledPartPlan:
             src=arrays[0], lcols=arrays[1], local_rows=arrays[2],
             row_start=arrays[3], edge_slot=arrays[4],
             tile_slices=aux[0], row0=aux[1], m_part=aux[2], m_pad=aux[3],
-            rows_per_block=aux[4], chunk_nnz=aux[5], max_run=aux[6],
-            edge0=aux[7], fold=aux[8],
+            rows_per_block=aux[4], chunk_nnz=aux[5], edge0=aux[6],
         )
 
     @property
@@ -395,31 +95,17 @@ class TiledPartPlan:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class TiledSpmmPlan:
-    """Stream-reduce SpMM plan: row parts x column tiles x slot chunks.
+    """Tiled SpMM plan: row parts x column tiles x slot chunks.
 
-    TPU-native re-design rationale (vs the reference's CRC/CWM CUDA tiling,
-    SURVEY.md section 2.2): on TPU the scattered per-edge row fetch is
-    descriptor-issue-bound (~10ns/row measured on v5e) for HBM-resident
-    dense operands, but XLA's gather from a VMEM-sized table runs 5-25x
-    faster.  So:
-      * columns are split into tiles small enough that the gather operand
-        is VMEM-resident (col_tile rows of B);
-      * rows are split into parts small enough that the OUTPUT accumulator
-        is VMEM-resident in the reduce kernel (no segment_sum, no
-        scatter-add: XLA's segment-sum measured ~10.7ns/edge — the actual
-        wall of the composite formulation);
-      * within a part, edges sorted by (tile, row) are consumed in chunks
-        of E slots whose rows fit a window of R (= one-hot scatter-matmul
-        per chunk on the MXU).
+    ``minmax``: optional row-aligned max/min layout; when present,
+    `spmm_tiled(reduce="max"/"min")` reduces over it instead of the slot
+    layout.
     """
 
     parts: Tuple[TiledPartPlan, ...]
     col_tile: int
     shape: Tuple[int, int]
     nnz: int
-    # Optional row-aligned max/min layout (round 5): when present,
-    # `spmm_tiled(reduce="max"/"min")` routes to the scan-free aligned
-    # kernel instead of the in-kernel segmented scan.
     minmax: Optional["AlignedMinmaxPlan"] = None
 
     def tree_flatten(self):
@@ -440,120 +126,30 @@ class TiledSpmmPlan:
         return (total - self.nnz) / max(total, 1)
 
 
-# Chunks per Pallas grid step in the stream-reduce kernel: the pipeline's
-# fixed per-step cost (~0.6-1us measured on v5e) dominates small chunk
-# sizes, so plans pad their chunk count to a multiple of this and the
-# kernel folds a group per step (raised 4 -> 16 in round 2: at E=128 the
-# per-step cost was ~1.25ns/slot at group 4, ~0.3 at 16).
-CHUNK_GROUP = 16
+# Bytes of B one column tile may hold by default: half of the H100's 50 MB
+# L2 cache (NVIDIA H100 data sheet), so a tile's gathered rows stay
+# L2-resident while its slots stream past.
+TILE_TABLE_BYTES = 25 << 20
 
 
-def _fold_factor(k_hint: int) -> int:
-    """DMA-row fold for the stream layout — MEASURED OFF (round 5).
-
-    Hypothesis: the reduce kernel's HBM->VMEM stream read is descriptor-
-    bound at narrow K (a copy-only kernel reads an (S, 64) f32 stream at
-    2.4 ns/slot — ~107 GB/s — independent of chunk geometry, K in
-    {64,128}, and accumulator size), so storing F consecutive chunks'
-    slots interleaved (DMA rows F*K wide) should amortize it — and DOES
-    in isolation: 2.39 -> 1.05 ns/slot with a pre-materialized folded
-    stream.  But the win does not survive composition with the gather
-    phase: reshaping the gather's (S, K) output to (S/F, F*K) costs a
-    relayout (rmat16 K=128: 96.7 -> 59.1 GF/s end to end), and
-    producing the folded shape directly via F takes concatenated on the
-    lane axis is slower still (gather+materialize+kernel-read probe:
-    2.50 -> 3.3-4.1 ns/slot).  Folding therefore defaults OFF and
-    remains an explicit opt-in (`build_tiled_plan(fold=...)`, covered by
-    tests/test_fold.py) for future runtimes where the layout economics
-    may differ.
-    """
-    del k_hint
-    return 1
+def _align_down(x: int, a: int) -> int:
+    return (x // a) * a
 
 
 def _finalize_part(
     lr, rs, src_flat, lc_flat, chunk_tile,
-    *, row0, m_part, m_pad, Rp, E, max_run, edge0, nedges, n, col_tile,
-    fold,
+    *, row0, m_part, m_pad, Rp, E, edge0, nedges, n, col_tile,
 ):
-    """Shared tail of the part builders: per-tile fold alignment,
-    CHUNK_GROUP padding, the fold permutation of the slot arrays, tile
-    slices, and the CSR-order inverse map.
+    """Shared tail of the part builders: tile slices and the CSR-order
+    inverse map.
 
-    Inputs are LOGICAL chunk-major: lr (C, E), rs (C,), src/lc (C*E,),
-    chunk_tile (C,) — the tile id of each chunk (chunks of one tile are
-    contiguous).  The fold stores F consecutive chunks' slots
-    interleaved: physical slot ((g*E + j)*F + f) holds logical chunk
-    (gF+f) slot j, so the kernel's stream rows are F*K wide.  F-groups
-    never span tiles (per-tile chunk counts pad to F), keeping each
-    tile's physical slot range contiguous for the gather phase.
+    Inputs are chunk-major: lr (C, E), rs (C,), src/lc (C*E,), chunk_tile
+    (C,) — the tile id of each chunk (chunks of one tile are contiguous).
     """
     C = lr.shape[0]
-    src2 = src_flat.reshape(C, E)
-    lc2 = lc_flat.reshape(C, E)
+    src_p = src_flat.reshape(-1)
+    valid_p = (lr < Rp).reshape(-1)
 
-    def pad_rows(arr2, fill, count):
-        return np.concatenate(
-            [arr2, np.full((count,) + arr2.shape[1:], fill, arr2.dtype)]
-        )
-
-    # 1. Per-tile chunk counts to a multiple of `fold` (sentinel chunks).
-    if fold > 1:
-        outs = {k: [] for k in ("lr", "rs", "src", "lc", "tile")}
-        c0 = 0
-        while c0 < C:
-            c1 = c0
-            while c1 < C and chunk_tile[c1] == chunk_tile[c0]:
-                c1 += 1
-            padc = (-(c1 - c0)) % fold
-            outs["lr"].append(pad_rows(lr[c0:c1], Rp, padc))
-            outs["rs"].append(
-                np.concatenate([rs[c0:c1], np.zeros(padc, rs.dtype)])
-            )
-            outs["src"].append(pad_rows(src2[c0:c1], 0, padc))
-            outs["lc"].append(pad_rows(lc2[c0:c1], 0, padc))
-            outs["tile"].append(
-                np.full(c1 - c0 + padc, chunk_tile[c0], chunk_tile.dtype)
-            )
-            c0 = c1
-        lr = np.concatenate(outs["lr"])
-        rs = np.concatenate(outs["rs"])
-        src2 = np.concatenate(outs["src"])
-        lc2 = np.concatenate(outs["lc"])
-        chunk_tile = np.concatenate(outs["tile"])
-        C = lr.shape[0]
-
-    # 2. Chunk-count padding to the kernel group size (appends complete
-    # fold-groups to the LAST tile: (-C) % group is a fold multiple).
-    group = CHUNK_GROUP if C > 8 else 4
-    if fold > 1:
-        group = max(group, fold)
-    padc = (-C) % group
-    if padc:
-        lr = pad_rows(lr, Rp, padc)
-        rs = np.concatenate([rs, np.zeros(padc, rs.dtype)])
-        src2 = pad_rows(src2, 0, padc)
-        lc2 = pad_rows(lc2, 0, padc)
-        chunk_tile = np.concatenate(
-            [chunk_tile,
-             np.full(padc, chunk_tile[-1] if C else 0, chunk_tile.dtype)]
-        )
-        C += padc
-
-    # 3. Fold permutation of the slot arrays (lr/rs stay chunk-major —
-    # the kernel slices the stream, not these).
-    if fold > 1:
-        src_p = src2.reshape(C // fold, fold, E).swapaxes(1, 2).reshape(-1)
-        lc_p = lc2.reshape(C // fold, fold, E).swapaxes(1, 2).reshape(-1)
-        valid_log = (lr < Rp)
-        valid_p = valid_log.reshape(
-            C // fold, fold, E).swapaxes(1, 2).reshape(-1)
-    else:
-        src_p = src2.reshape(-1)
-        lc_p = lc2.reshape(-1)
-        valid_p = (lr < Rp).reshape(-1)
-
-    # 4. Tile slices over the (physically contiguous) chunk runs.
     tile_slices = []
     c0 = 0
     while c0 < C:
@@ -567,13 +163,12 @@ def _finalize_part(
         )
         c0 = c1
 
-    # 5. CSR-order inverse of the PHYSICAL slot order.
     es = np.zeros(nedges, np.int32)
     es[src_p[valid_p] - edge0] = np.flatnonzero(valid_p)
 
     return TiledPartPlan(
         src=jnp.asarray(src_p),
-        lcols=jnp.asarray(lc_p),
+        lcols=jnp.asarray(lc_flat.reshape(-1)),
         local_rows=jnp.asarray(lr),
         row_start=jnp.asarray(rs.astype(np.int32)),
         tile_slices=tuple(tile_slices),
@@ -582,12 +177,18 @@ def _finalize_part(
         m_pad=m_pad,
         rows_per_block=Rp,
         chunk_nnz=E,
-        max_run=max_run,
         edge_slot=jnp.asarray(es),
         edge0=edge0,
-        fold=fold,
     )
 
+
+def default_col_tile(n: int, k_hint: int) -> int:
+    """Whole B as one tile when it fits `TILE_TABLE_BYTES` at ``k_hint``
+    features; otherwise the largest power of two of rows that does."""
+    if n * 4 * max(k_hint, 1) <= TILE_TABLE_BYTES:
+        return max(n, 1)
+    rows = TILE_TABLE_BYTES // (4 * max(k_hint, 1))
+    return max(1 << (max(rows, 1).bit_length() - 1), 1024)
 
 
 def build_tiled_plan(
@@ -595,96 +196,35 @@ def build_tiled_plan(
     col_tile: Optional[int] = None,
     rows_per_block: Optional[int] = None,
     chunk_nnz: int = 256,
-    part_rows: int = 65536,
+    part_rows: Optional[int] = None,
     k_hint: int = 128,
     minmax_aligned: bool = True,
-    fold: Optional[int] = None,
 ) -> TiledSpmmPlan:
-    """Host-side construction of the stream-reduce plan.
+    """Host-side construction of the tiled plan.
 
-    col_tile: B rows per gather tile (col_tile*K*4 bytes must be
-      VMEM-friendly).  Default (None): density-derived — wide enough that
-      each (part, tile) window sees ~0.8 edges per row (so chunks of E
-      edges fit an R-row scatter window without heavy padding), clamped
-      to [8192, 65536] and to a ~32MB table at ``k_hint`` features.
-    rows_per_block (R): output-row window one chunk may scatter into.
-      Default (None): density-derived — wide enough that a chunk of E
-      edges usually fits one window (pad vs MXU-flop tradeoff; the sweep
-      in scripts/ landed at R≈1.6·E/edges-per-row-per-tile on v5e).
-    chunk_nnz (E): slots per chunk (one MXU scatter-matmul each).
-    part_rows: output rows per part (part_rows*K*4 bytes of VMEM
-      accumulator; 65536 @ K=128 = 32 MB, leaving headroom at K=256).
+    col_tile: B rows per gather tile.  Default (None): `default_col_tile`.
+    rows_per_block (R): output-row window one chunk may cover.  Default
+      (None): the whole part, so chunks break only at tile boundaries.
+    chunk_nnz (E): slots per chunk.
+    part_rows: output rows per part.  Default (None): one part.
+    k_hint: feature width the tile size is chosen for.
     """
     indptr = np.asarray(csr.indptr)
     indices = np.asarray(csr.indices)
     m, n = csr.shape
     nnz = int(indices.shape[0])
     E = int(chunk_nnz)
-    # The reduce kernel's resident accumulator is m_pad x k_tile x 4B and
-    # k_tile cannot go below min(K, 128); clamp the part size so a 128-wide
-    # pass fits the accumulator budget (single-buffered at every K tile —
-    # the kernel issues one pallas_call per tile with a static offset).
-    acc_budget = 64 << 20
-    part_rows = min(part_rows, (acc_budget // (4 * 128) // 8) * 8)
-    auto_layout = col_tile is None
     if col_tile is None:
-        # A SINGLE tile (whole B as the gather table) wins whenever it
-        # fits the fast-gather tier: no piece concatenation, no chunk
-        # breaks at tile boundaries (measured: pubmed 66->76, rmat14
-        # 56->85, rmat16 58->84 GF/s at K=128).  The fast tier extends
-        # to ~44MB tables when rows are WIDE (pubmed K=512's 40MB single
-        # table runs 134 GF/s vs 73 for the 8192-row multi-tile layout);
-        # at NARROW K the per-row gather cost tracks table bytes (round-2
-        # microbench: ~2ns/row at <=8MB, 5.6 at 32MB), so a 33MB K=32
-        # table runs the slow tier — rmat18 K=32 measured 4.9 GF/s
-        # single-table (r4) vs ~25 expected from the rmat16 8MB point.
-        # Narrow K therefore caps the single table at 12MB.
-        tbl_bytes = n * 4 * max(k_hint, 1)
-        if tbl_bytes <= (44 << 20) and (
-            k_hint >= 128 or tbl_bytes <= (12 << 20)
-        ):
-            col_tile = max(n, 1)
-        else:
-            # Multi-tile: the per-row gather cost rises steeply with the
-            # table size (measured r2 on v5e: ~2ns/row at <=8MB, 3.2 at
-            # 16MB, 5.6 at 32MB, ~6.4 at 64MB), so target an ~8MB table
-            # at the hinted feature width — EXCEPT when the graph is so
-            # sparse that 8MB windows are chunk-starved (density < 1.2
-            # edges/row/tile), where a 16MB table's halved padding wins
-            # (rmat20: 31.7 -> 44.1 GF/s measured).
-            budget_rows = (8 << 20) // (4 * max(k_hint, 1))
-            col_tile = 8192
-            while col_tile * 2 <= min(budget_rows, 65536):
-                col_tile *= 2
-            if nnz * col_tile / max(m * n, 1) < 1.2:
-                col_tile = min(col_tile * 2, max(n, 1))
+        col_tile = default_col_tile(n, k_hint)
+    if part_rows is None:
+        part_rows = max(m, 1)
     if rows_per_block is None:
-        n_tiles = max(-(-n // col_tile), 1)
-        density = nnz / max(m * n_tiles, 1)  # edges per row per tile
-        if auto_layout and n_tiles > 1:
-            # Multi-tile auto (swept on v5e, rmat18/rmat20 K=128): the
-            # one-hot scatter costs MXU flops ∝ R while chunk-boundary
-            # padding falls as the window-to-chunk ratio R·d/E grows;
-            # the measured optimum keeps the expected window at ~3.6
-            # chunks (rmat18: R=256, E=128 → 60.7 GF/s vs 43.4 for the
-            # round-1 derivation).  Sparser windows (d < ~1.2) halve E
-            # so the window still spans multiple chunks.
-            E = 128
-            R = int(min(512, max(128,
-                -(-int(3.6 * E / max(density, 1e-9)) // 8) * 8)))
-        else:
-            # Single-tile: the one-hot scatter costs ~3·R·kt MACs per
-            # slot — LINEAR in R — while window padding only bites once
-            # R·density drops near E (measured v5e: pubmed K=128 78->90
-            # GF/s and rmat16 87->97 lowering the floor 256->64; padding
-            # flat until R=48).
-            R = int(min(1024, max(64, -(-int(1.6 * E / max(density, 1e-9)) // 8) * 8)))
+        R = -(-min(part_rows, max(m, 1)) // 8) * 8
     else:
         R = int(rows_per_block)
     if R % 8 or E % 8:
         raise ValueError("rows_per_block and chunk_nnz must be multiples of 8")
 
-    F = _fold_factor(k_hint) if fold is None else max(1, int(fold))
     rows_all = np.repeat(np.arange(m, dtype=np.int32), np.diff(indptr))
     parts = []
     for row0 in range(0, max(m, 1), part_rows):
@@ -701,15 +241,6 @@ def build_tiled_plan(
         rows_p, cols_p, src_p, tile_p = (
             rows_p[order], cols_p[order], src_p[order], tile_p[order]
         )
-        # Longest (tile, row) run in slot order — the max/min kernel's
-        # segmented scan only needs ceil(log2(max_run)) steps.
-        if len(rows_p):
-            key = tile_p.astype(np.int64) * m + rows_p
-            bnd = np.flatnonzero(np.diff(key)) + 1
-            seg = np.diff(np.concatenate(([0], bnd, [len(key)])))
-            max_run = int(seg.max())
-        else:
-            max_run = 1
 
         # Pack row-windowed chunks of E slots per tile: native C++ walk
         # when the graphio library is available (identical output,
@@ -732,8 +263,7 @@ def build_tiled_plan(
                 lr_n, rs_n.astype(np.int32), src_n.reshape(-1),
                 lc_n.reshape(-1), np.asarray(chunk_tile),
                 row0=row0, m_part=m_part, m_pad=m_pad, Rp=Rp, E=E,
-                max_run=max_run, edge0=s, nedges=e - s, n=n,
-                col_tile=col_tile, fold=F,
+                edge0=s, nedges=e - s, n=n, col_tile=col_tile,
             ))
             if m == 0:
                 break
@@ -746,7 +276,6 @@ def build_tiled_plan(
         for ti, t in enumerate(tids):
             ts, te = int(bounds[ti]), int(bounds[ti + 1])
             t_rows = rows_p[ts:te]
-            slot0 = len(src_slots) * E  # chunks emitted so far * E
             i = ts
             while i < te:
                 r0 = _align_down(int(t_rows[i - ts]), 8)
@@ -784,16 +313,12 @@ def build_tiled_plan(
             np.concatenate(lcol_slots),
             np.asarray(tile_chunks, np.int64),
             row0=row0, m_part=m_part, m_pad=m_pad, Rp=Rp, E=E,
-            max_run=max_run, edge0=s, nedges=e - s, n=n,
-            col_tile=col_tile, fold=F,
+            edge0=s, nedges=e - s, n=n, col_tile=col_tile,
         ))
         if m == 0:
             break
 
-    mm = (
-        build_aligned_minmax_plan(csr, k_hint=k_hint)
-        if minmax_aligned else None
-    )
+    mm = build_aligned_minmax_plan(csr) if minmax_aligned else None
     return TiledSpmmPlan(
         parts=tuple(parts), col_tile=col_tile, shape=(m, n), nnz=nnz,
         minmax=mm,
@@ -801,7 +326,7 @@ def build_tiled_plan(
 
 
 # ---------------------------------------------------------------------------
-# Row-aligned max/min layout (round 5): scan-free, kernel-free reduction
+# Row-aligned max/min layout: reshape-reduce over fixed-width segments
 # ---------------------------------------------------------------------------
 
 
@@ -837,13 +362,10 @@ class AlignedLevel:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class AlignedMinmaxPlan:
-    """Row-aligned slot layout for max/min SpMM (VERDICT r4 #4).
+    """Row-aligned slot layout for max/min SpMM.
 
-    The stream kernel's in-chunk segmented shift-scan costs
-    ceil(log2(longest run)) passes over the whole slot stream — the
-    measured floor of SAGE-pool on pubmed (bench_results/pool_profile.md:
-    the degree-172 hub row forces 8 passes at EVERY feature width).
-    This layout removes BOTH the scan and the one-hot scatter kernel:
+    The reduction is a reshape-reduce over fixed-width segments instead of
+    a scatter-style segment reduction:
 
       * rows are bucketed into degree classes; each row's edges pad to
         segments of the class width W, so the per-segment reduction is a
@@ -852,7 +374,7 @@ class AlignedMinmaxPlan:
         candidates become level-(l+1) elements (levels beyond 0 are tiny
         — mega rows only) until every row holds ONE candidate;
       * the final "scatter" is therefore an inverse-permutation `take`
-        (rows partition across classes), not a windowed one-hot matmul.
+        (rows partition across classes).
 
     Pad slots gather a SENTINEL identity row appended to the table, so
     no validity mask is materialized.  (Caveat: a graph whose real
@@ -901,28 +423,31 @@ class AlignedMinmaxPlan:
 def build_aligned_minmax_plan(
     csr,
     seg_widths: Optional[Tuple[int, ...]] = None,
-    table_bytes_cap: int = 44 << 20,
-    k_hint: int = 128,
 ) -> Optional[AlignedMinmaxPlan]:
     """Host-side construction of the row-aligned max/min layout.
 
-    seg_widths: ascending class widths (a row of count c lands in the
-      smallest class with W >= c; bigger rows split into ceil(c/W_max)
-      segments and recurse).  Default: powers of two from 1 — width-1
-      and width-2 classes matter, low-degree rows dominate real graphs.
-    Returns None when the whole-B gather table would exceed the
-    fast-gather tier at ``k_hint`` (callers then use the scan kernel).
+    seg_widths: class widths (a row of count c lands in the smallest
+      class with W >= c; bigger rows split into ceil(c/W_max) segments and
+      recurse, so the widest class must be at least 2).  Default: powers
+      of two from 1 — width-1 and width-2 classes matter, low-degree rows
+      dominate real graphs.
+    Returns None for an empty matrix.
     """
+    if seg_widths is None:
+        seg_widths = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+    W_list = sorted(set(int(w) for w in seg_widths))
+    if not W_list or W_list[0] < 1 or W_list[-1] < 2:
+        raise ValueError(
+            f"seg_widths must be positive with a widest class >= 2 (rows "
+            f"wider than it recurse), got {tuple(seg_widths)!r}"
+        )
     indptr = np.asarray(csr.indptr)
     indices = np.asarray(csr.indices)
     m, n = csr.shape
     nnz = int(indices.shape[0])
-    if n * 4 * max(k_hint, 1) > table_bytes_cap or m == 0 or nnz == 0:
+    if m == 0 or nnz == 0:
         return None
     deg = np.diff(indptr)
-    if seg_widths is None:
-        seg_widths = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
-    W_list = sorted(set(int(w) for w in seg_widths))
     W_arr = np.asarray(W_list)
     W_max = W_list[-1]
 

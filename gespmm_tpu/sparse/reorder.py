@@ -1,10 +1,9 @@
 """Graph reordering: locality-creating node permutations.
 
-A capability the GPU reference never needed (warps tolerate random access;
-TPU DMA gathers reward locality): renumber nodes so that neighboring nodes
-get nearby ids, which (a) narrows each row-block's column window, (b) lets
-the grouped-gather plan deduplicate aligned row-groups, and (c) improves
-HBM page locality for the XLA gather tier.
+A capability the reference never had: renumber nodes so that neighboring
+nodes get nearby ids, which (a) narrows each row-block's column window,
+(b) improves the L2 hit rate of row gathers, and (c) cuts the halo
+exchange of partitioned training (`partition_order`).
 
 Reorderings are symmetric permutations A' = P·A·Pᵀ computed ONCE at ingest;
 models simply use the permuted node order end-to-end (features, labels and

@@ -259,9 +259,9 @@ def hub_graph(
     """Extreme-hub graph: a sparse uniform background (degree
     ``base_degree``) plus ``n_hubs`` nodes each adjacent to a random
     ``hub_frac`` of ALL nodes.  The degree distribution's worst case for
-    row-windowed plans and the max/min segmented scan: a single (tile,
-    row) run can span many full chunks (max_run ≈ hub_frac·n/n_tiles),
-    far beyond anything R-MAT's smooth skew produces.
+    row-windowed plans and row-per-program kernels: one row spans many
+    chunks (hub_frac·n nonzeros), far beyond anything R-MAT's smooth skew
+    produces.
     """
     rng = np.random.default_rng(seed)
     rows = rng.integers(0, n, size=n * base_degree).astype(np.int64)
@@ -383,15 +383,19 @@ def planetoid_style_dataset(
     num_classes: int = 3,
     seed: int = 0,
 ) -> GraphDataset:
-    """Bundled citation graph + synthetic features/labels.
+    """A graph + synthetic features/labels.
 
-    The reference gets real Planetoid features via PyG's downloader
-    (`gcn_custom.py:18-27`); without egress we attach structure-derived
-    labels (propagated from random seeds, so they correlate with the graph)
-    and class-correlated features — preserving the benchmark's compute
-    shape AND giving models real signal.
+    ``name``: a generated graph (any `synth_graph` name, e.g.
+    ``cl169343-14`` for an ogbn-arxiv-shaped Chung-Lu graph) or a bundled
+    ``.mtx`` graph.  The reference gets real Planetoid features via PyG's
+    downloader (`gcn_custom.py:18-27`); without egress we attach
+    structure-derived labels (propagated from random seeds, so they
+    correlate with the graph) and class-correlated features — preserving
+    the benchmark's compute shape AND giving models real signal.
     """
-    csr = load_mtx_graph(name, binary=True)
+    csr = synth_graph(name, seed=seed)
+    if csr is None:
+        csr = load_mtx_graph(name, binary=True)
     n = csr.shape[0]
     rng = np.random.default_rng(seed)
 

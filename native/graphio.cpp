@@ -1,6 +1,6 @@
 // gespmm_tpu native graph-IO: fast Matrix Market ingest + sparse transforms.
 //
-// TPU-native counterpart of the reference's C++ ingest layer
+// Counterpart of the reference's C++ ingest layer
 // (/root/reference/util/mmio.hpp + util/util.hpp readMtx/makeSymmetric/
 // customSort, ~984 LoC of header library): a single translation unit
 // exposing a C ABI consumed from Python via ctypes (no pybind11 in this

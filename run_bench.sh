@@ -1,16 +1,13 @@
 #!/bin/sh
-# One-shot benchmark sweep (capability parity with the reference's
-# run_test.sh): SpMM CSV sweep over the available graph corpus + GCN/SAGE
-# end-to-end benchmarks.  Writes spmm_bench_out.csv and prints JSON lines.
+# One-shot benchmark sweep on a GPU (capability parity with the reference's
+# run_test.sh): SpMM and SDDMM CSV sweeps over generated graphs, then the
+# GCN/SAGE/GAT end-to-end benchmarks.  Prints JSON lines; needs a GPU.
 set -e
-GRAPHS="${GRAPHS:-cora citeseer pubmed rmat15}"
+GRAPHS="${GRAPHS:-cl169343-14 rmat18}"
 KS="${KS:-32 64 128 256}"
 python -m gespmm_tpu.bench.spmm_bench --graphs $GRAPHS --k $KS --validate --roofline --csv spmm_bench_out.csv
 python -m gespmm_tpu.bench.spmm_bench --graphs $GRAPHS --k 32 64 128 --sddmm --validate --csv sddmm_bench_out.csv
-python -m gespmm_tpu.bench.gcn_bench --dataset pubmed --n-epochs 100 --log-every 0
-python -m gespmm_tpu.bench.sage_bench --dataset pubmed --n-epochs 100 --aggregator-type mean --log-every 0
-python -m gespmm_tpu.bench.sage_bench --dataset pubmed --n-epochs 100 --aggregator-type pool --log-every 0
-python -m gespmm_tpu.bench.gat_bench --dataset pubmed --n-epochs 100 --log-every 0
-# Compiled-kernel gate on the bench chip (opt-in elsewhere: plain pytest
-# skips it so the CPU suite stays fast).
-GESPMM_RUN_TPU_GATE=1 python -m pytest tests/test_tpu_compiled.py -q
+python -m gespmm_tpu.bench.gcn_bench --n-epochs 100 --log-every 0
+python -m gespmm_tpu.bench.sage_bench --n-epochs 100 --aggregator-type mean --log-every 0
+python -m gespmm_tpu.bench.sage_bench --n-epochs 100 --aggregator-type pool --log-every 0
+python -m gespmm_tpu.bench.gat_bench --n-epochs 100 --log-every 0

@@ -53,11 +53,11 @@ def _dense_ties(mat, B, op):
 @pytest.mark.parametrize("binary", [False, True])
 def test_aligned_matches_dense(op, binary):
     csr, mat = random_csr(120, 90, density=0.08, seed=31, binary=binary)
-    plan = build_aligned_minmax_plan(csr, k_hint=8)
+    plan = build_aligned_minmax_plan(csr)
     assert plan is not None
     B = np.random.default_rng(31).standard_normal((90, 12)).astype(np.float32)
     out = spmm_minmax_aligned(
-        plan, csr.data, jnp.asarray(B), 120, reduce=op, interpret=True
+        plan, csr.data, jnp.asarray(B), 120, reduce=op
     )
     if binary:
         mat = mat.copy()
@@ -84,11 +84,11 @@ def test_aligned_mega_row_segments(op):
     mat = mat.tocsr()
     mat.eliminate_zeros()
     csr = csr_from_scipy(mat)
-    plan = build_aligned_minmax_plan(csr, seg_widths=(4, 16), k_hint=8)
+    plan = build_aligned_minmax_plan(csr, seg_widths=(4, 16))
     assert len(plan.levels) > 1  # hub deg 150 > W_max 16 -> recursion
     B = rng.standard_normal((n, 8)).astype(np.float32)
     out = spmm_minmax_aligned(
-        plan, csr.data, jnp.asarray(B), m, reduce=op, interpret=True
+        plan, csr.data, jnp.asarray(B), m, reduce=op
     )
     np.testing.assert_allclose(
         np.asarray(out), _dense_minmax(mat, B, op), rtol=1e-6, atol=1e-6
@@ -105,11 +105,10 @@ def test_aligned_ties_exact(op):
     qdata[qdata == 0] = 1.0
     csr = csr.with_data(jnp.asarray(qdata.astype(np.float32)))
     mat.data[:] = qdata
-    plan = build_aligned_minmax_plan(csr, seg_widths=(4, 8), k_hint=8)
+    plan = build_aligned_minmax_plan(csr, seg_widths=(4, 8))
     B = (np.round(rng.standard_normal((60, 8)) * 2) / 2).astype(np.float32)
     out, ties = spmm_minmax_aligned(
         plan, csr.data, jnp.asarray(B), 80, reduce=op, want_ties=True,
-        interpret=True,
     )
     dout, dties = _dense_ties(mat, B, op)
     np.testing.assert_allclose(np.asarray(out), dout, rtol=1e-6, atol=1e-6)
@@ -121,16 +120,14 @@ def test_tiled_plan_routes_minmax_to_aligned():
     plan = build_tiled_plan(csr)
     assert plan.minmax is not None
     B = np.random.default_rng(34).standard_normal((48, 8)).astype(np.float32)
-    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 64, reduce="max",
-                     interpret=True)
+    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 64, reduce="max")
     np.testing.assert_allclose(
         np.asarray(out), _dense_minmax(mat, B, "max"), rtol=1e-6, atol=1e-6
     )
     # Scan path still reachable when the aligned layout is disabled.
     plan_scan = build_tiled_plan(csr, minmax_aligned=False)
     assert plan_scan.minmax is None
-    out2 = spmm_tiled(plan_scan, csr.data, jnp.asarray(B), 64, reduce="max",
-                      interpret=True)
+    out2 = spmm_tiled(plan_scan, csr.data, jnp.asarray(B), 64, reduce="max")
     np.testing.assert_allclose(np.asarray(out), np.asarray(out2),
                                rtol=0, atol=0)
 
@@ -169,16 +166,19 @@ def test_aligned_grads_match_xla(op):
 def test_aligned_empty_rows_zero():
     csr, mat = random_csr(64, 32, density=0.02, seed=36)
     assert (np.diff(mat.indptr) == 0).any()
-    plan = build_aligned_minmax_plan(csr, k_hint=8)
+    plan = build_aligned_minmax_plan(csr)
     B = np.random.default_rng(36).standard_normal((32, 8)).astype(np.float32)
     for op in ("max", "min"):
         out = np.asarray(spmm_minmax_aligned(
-            plan, csr.data, jnp.asarray(B), 64, reduce=op, interpret=True
+            plan, csr.data, jnp.asarray(B), 64, reduce=op
         ))
         assert np.all(out[np.diff(mat.indptr) == 0] == 0)
 
 
-def test_aligned_refuses_oversize_table():
-    # Table beyond the fast-gather tier -> None (callers use the scan).
+@pytest.mark.parametrize("widths", [(1,), (0, 4), ()])
+def test_aligned_rejects_bad_seg_widths(widths):
+    # A widest class of 1 never shrinks a row's candidate count, so its
+    # rows would be left unresolved; non-positive widths are meaningless.
     csr, _ = random_csr(64, 64, density=0.1, seed=37)
-    assert build_aligned_minmax_plan(csr, k_hint=1 << 22) is None
+    with pytest.raises(ValueError, match="seg_widths"):
+        build_aligned_minmax_plan(csr, seg_widths=widths)

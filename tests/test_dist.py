@@ -1,6 +1,6 @@
 """Distributed SpMM on the 8-device virtual CPU mesh.
 
-The TPU-native analogue of multi-node tests without a cluster (SURVEY §4):
+Multi-device tests without a cluster (SURVEY §4):
 row-partitioned CSR under shard_map must match the single-device op
 bit-for-bit in structure and to fp tolerance in values, and gradients must
 flow through the collectives.
@@ -362,8 +362,8 @@ def test_halo_strictness_and_errors():
                   model_axis=None)
 @pytest.mark.parametrize("reduce", ["sum", "max"])
 def test_halo_multipart_shard(reduce):
-    # A shard larger than the VMEM accumulator budget splits into
-    # multiple output windows (VERDICT r3 #10) instead of raising.
+    # A shard larger than the window budget splits into multiple
+    # output windows.
     # part_budget_rows=16 forces rpp=32 > budget → 2 windows per shard;
     # values AND gradients must match the dense oracle.
     from gespmm_tpu.parallel.halo import (
@@ -526,7 +526,7 @@ def test_halo_baked_edge_values_still_work_tiled():
 def test_halo_diag_compute_independent_of_collectives():
     """The overlap *precondition*, asserted on the compiled HLO: the
     diagonal SpMM's compute (its scatter-adds) must not transitively
-    depend on any collective-permute.  Runtime overlap itself is a TPU
+    depend on any collective-permute.  Runtime overlap itself is a GPU
     latency-hiding-scheduler behavior and unobservable on the virtual
     CPU mesh (synchronous collective-permute); what we CAN pin down is
     the data-dependency structure that makes it possible — and that a

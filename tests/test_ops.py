@@ -311,30 +311,3 @@ def test_spmm_dense_size_guard():
     B = jnp.zeros((1 << 18, 8), jnp.float32)
     with pytest.raises(ValueError, match="dense A would be"):
         ref.spmm_dense_xla(rows, cols, None, B, 1 << 18)
-
-
-def test_xla_segment_guard():
-    # The single-gather XLA tiers fault the TPU worker at rmat20 scale;
-    # the guard must raise on TPU backends and stay silent on CPU (where
-    # the fault does not exist).  Monkeypatch the backend probe so the
-    # TPU branch is exercised without a chip.
-    from gespmm_tpu.ops import reference as ref
-
-    n = ref.XLA_SEGMENT_NNZ_LIMIT + 1
-    # CPU backend: no raise (cheap check — don't materialize n indices).
-    ref._check_segment_scale(n, "t")
-
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        with pytest.raises(ValueError, match="FAULT the TPU worker"):
-            ref._check_segment_scale(n, "t")
-        import os
-        os.environ["GESPMM_UNSAFE_XLA_SEGMENT"] = "1"
-        try:
-            ref._check_segment_scale(n, "t")  # bypass honored
-        finally:
-            del os.environ["GESPMM_UNSAFE_XLA_SEGMENT"]
-        ref._check_segment_scale(ref.XLA_SEGMENT_NNZ_LIMIT, "t")  # at limit ok
-    finally:
-        jax.default_backend = orig

@@ -1,6 +1,5 @@
-"""Stream-reduce SpMM (tiled gather + Pallas VMEM reduction) — interpret
-mode on CPU vs scipy goldens; compiled-mode TPU equivalence is exercised by
-bench.py and the verify flow.
+"""Tiled SpMM (per-tile XLA gather + XLA segment reduce over the slot
+layout) vs scipy / dense goldens.
 """
 
 import jax
@@ -13,7 +12,7 @@ from gespmm_tpu.ops.spmm import Adjacency, spmm
 from gespmm_tpu.sparse.partition import TiledSpmmPlan, build_tiled_plan
 from tests.conftest import powerlaw_csr, random_csr
 
-TOL = dict(rtol=1e-4, atol=1e-4)  # hilo mode: ~1e-5 relative per element
+TOL = dict(rtol=1e-4, atol=1e-4)  # f32 sums in another order than scipy
 
 
 @pytest.mark.parametrize(
@@ -31,20 +30,18 @@ def test_spmm_tiled_interpret(shape, density, ct, rp, E, pr):
         csr, col_tile=ct, rows_per_block=rp, chunk_nnz=E, part_rows=pr
     )
     B = np.random.default_rng(1).standard_normal((shape[1], 32)).astype(np.float32)
-    out = spmm_tiled(plan, csr.data, jnp.asarray(B), shape[0], interpret=True)
+    out = spmm_tiled(plan, csr.data, jnp.asarray(B), shape[0])
     np.testing.assert_allclose(np.asarray(out), mat @ B, **TOL)
 
 
 def test_spmm_tiled_binary_and_modes():
+    # Binary adjacency (implicit 1.0 edges) through the segment reduce.
     csr, mat = random_csr(48, 40, density=0.12, seed=2, binary=True)
     plan = build_tiled_plan(csr, col_tile=16, rows_per_block=8, chunk_nnz=8,
                             part_rows=16)
     B = np.random.default_rng(2).standard_normal((40, 16)).astype(np.float32)
-    golden = mat @ B
-    for mode, tol in (("hilo", 1e-4), ("highest", 1e-5), ("fast", 5e-2)):
-        out = spmm_tiled(plan, None, jnp.asarray(B), 48, mode=mode,
-                         interpret=True)
-        np.testing.assert_allclose(np.asarray(out), golden, rtol=tol, atol=tol)
+    out = spmm_tiled(plan, None, jnp.asarray(B), 48)
+    np.testing.assert_allclose(np.asarray(out), mat @ B, rtol=1e-5, atol=1e-5)
 
 
 def test_spmm_tiled_powerlaw():
@@ -52,7 +49,7 @@ def test_spmm_tiled_powerlaw():
     plan = build_tiled_plan(csr, col_tile=32, rows_per_block=16, chunk_nnz=16,
                             part_rows=40)
     B = np.random.default_rng(3).standard_normal((80, 8)).astype(np.float32)
-    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 96, interpret=True)
+    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 96)
     np.testing.assert_allclose(np.asarray(out), mat @ B, **TOL)
 
 
@@ -62,7 +59,7 @@ def test_spmm_tiled_k_padding():
     plan = build_tiled_plan(csr, col_tile=8, rows_per_block=8, chunk_nnz=8,
                             part_rows=16)
     B = np.random.default_rng(4).standard_normal((25, 33)).astype(np.float32)
-    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 30, interpret=True)
+    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 30)
     np.testing.assert_allclose(np.asarray(out), mat @ B, **TOL)
 
 
@@ -77,7 +74,7 @@ def test_spmm_tiled_empty_rows_and_empty_part():
     plan = build_tiled_plan(ours, col_tile=16, rows_per_block=8, chunk_nnz=8,
                             part_rows=32)
     B = np.random.default_rng(5).standard_normal((30, 8)).astype(np.float32)
-    out = spmm_tiled(plan, ours.data, jnp.asarray(B), 64, interpret=True)
+    out = spmm_tiled(plan, ours.data, jnp.asarray(B), 64)
     np.testing.assert_allclose(np.asarray(out), smat @ B, **TOL)
     assert np.all(np.asarray(out)[40:] == 0)
 
@@ -167,8 +164,8 @@ def test_sddmm_tiled_matches_dense_and_grads():
 
 
 def test_spmm_tiled_bf16_binary_exact_fast_path():
-    # bf16 features + implicit-1.0 edges: the single-pass fast mode is
-    # exact at bf16 precision (sum accumulates in f32).
+    # bf16 features + implicit-1.0 edges: gathered in bf16, summed in
+    # f32, returned in bf16.
     csr, mat = random_csr(64, 64, density=0.1, seed=13, binary=True)
     adj = Adjacency.from_csr(csr, plan=True, col_tile=32, rows_per_block=16,
                              chunk_nnz=16, part_rows=32)
@@ -218,7 +215,7 @@ def test_spmm_tiled_minmax_interpret(op, shape, density, ct, rp, E, pr, binary):
         (shape[1], 16)
     ).astype(np.float32)
     out = spmm_tiled(
-        plan, csr.data, jnp.asarray(B), shape[0], interpret=True, reduce=op
+        plan, csr.data, jnp.asarray(B), shape[0], reduce=op
     )
     if binary:
         mat = mat.copy()
@@ -236,7 +233,7 @@ def test_spmm_tiled_minmax_powerlaw_long_runs():
     plan = build_tiled_plan(csr, col_tile=32, rows_per_block=16, chunk_nnz=16,
                             part_rows=40, minmax_aligned=False)
     B = np.random.default_rng(22).standard_normal((80, 8)).astype(np.float32)
-    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 96, interpret=True,
+    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 96,
                      reduce="max")
     np.testing.assert_allclose(
         np.asarray(out), _dense_minmax(mat, B, "max"), rtol=1e-6, atol=1e-6
@@ -326,7 +323,7 @@ def test_spmm_tiled_want_ties_counts_and_grads(op):
         np.round(rng.standard_normal((40, 8)) * 2).astype(np.float32) / 2
     )
     out, ties = spmm_tiled(
-        adj.plan, None, B, 48, interpret=True, reduce=op, want_ties=True
+        adj.plan, None, B, 48, reduce=op, want_ties=True
     )
     dense = np.asarray(mat.toarray() != 0)
     contrib = np.where(dense[:, :, None], np.asarray(B)[None], np.nan)
@@ -363,10 +360,8 @@ def test_spmm_tiled_want_ties_counts_and_grads(op):
 
 @pytest.mark.parametrize("op", ["max", "min"])
 def test_spmm_tiled_want_ties_multi_ktile_slab_bf16(op, monkeypatch):
-    # ADVICE r3: the n_k>1 list-output pallas_call path, the K-slab
-    # recursion, and the bf16 fast path were untested with want_ties.
-    # k_tile=128 with K=256 forces two K tiles; a tiny _STREAM_BUDGET
-    # forces the slab recursion on top.
+    # The K-slab recursion and bf16 inputs with want_ties: a tiny stream
+    # budget forces two 128-column slabs at K=256.
     import gespmm_tpu.kernels.spmm_stream as ss
 
     csr, mat = random_csr(24, 20, density=0.2, seed=31, binary=True)
@@ -390,9 +385,10 @@ def test_spmm_tiled_want_ties_multi_ktile_slab_bf16(op, monkeypatch):
     slots_max = max(p.num_slots for p in adj.plan.parts)
     # Budget small enough that a 256-wide f32 stream must slab (the slab
     # floor is 128 columns, so this forces exactly two slabs).
-    monkeypatch.setattr(ss, "_STREAM_BUDGET", slots_max * 4 * 128)
+    monkeypatch.setattr(ss, "_stream_budget", lambda: slots_max * 4 * 128)
+    assert ss._k_slab(slots_max, K) == 128
     out, ties = spmm_tiled(
-        adj.plan, None, B, 24, k_tile=128, interpret=True, reduce=op,
+        adj.plan, None, B, 24, reduce=op,
         want_ties=True,
     )
     np.testing.assert_allclose(np.asarray(out), golden_out, rtol=1e-6,
@@ -400,10 +396,10 @@ def test_spmm_tiled_want_ties_multi_ktile_slab_bf16(op, monkeypatch):
     np.testing.assert_array_equal(np.asarray(ties), golden_ties)
     assert (np.asarray(ties).max(initial=0)) > 1, "test graph has no ties"
 
-    # bf16 B + implicit edges: the one-pass exact bf16 stream with ties.
+    # bf16 B + implicit edges with ties.
     Bb = B.astype(jnp.bfloat16)
     out_b, ties_b = spmm_tiled(
-        adj.plan, None, Bb, 24, k_tile=128, interpret=True, reduce=op,
+        adj.plan, None, Bb, 24, reduce=op,
         want_ties=True,
     )
     # B's values are multiples of 0.5 well within bf16 range, so the
@@ -426,8 +422,9 @@ def test_explicit_method_strictness():
     # tiled without a tiled plan must raise, not silently fall back.
     with pytest.raises(ValueError, match="tiled"):
         spmm(adj_plain, B, method="tiled")
-    # pallas without a per-row/grouped plan must raise.
-    with pytest.raises(ValueError, match="pallas"):
+    # pallas is the Triton kernel: off the GPU it must raise, not run
+    # interpreted or fall back.
+    with pytest.raises(ValueError, match="Triton"):
         spmm(adj_tiled, B, method="pallas")
     # explicit kernel method with an unsupported reduce must raise.
     with pytest.raises(ValueError, match="reduce"):
@@ -440,64 +437,60 @@ def test_explicit_method_strictness():
 
 @pytest.mark.slow
 def test_spmm_tiled_nonmultiple_k_tile_terminates():
-    # Regression: k_tile not a multiple of 128 with K > k_tile used to
-    # loop forever in the k-tile fitting loop.
+    # A wide K that is not a multiple of 128.
     csr, mat = random_csr(24, 20, density=0.2, seed=27)
     plan = build_tiled_plan(csr, col_tile=8, rows_per_block=8, chunk_nnz=8,
                             part_rows=16)
     B = np.random.default_rng(27).standard_normal((20, 300)).astype(np.float32)
-    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 24, k_tile=200,
-                     interpret=True)
+    out = spmm_tiled(plan, csr.data, jnp.asarray(B), 24)
     np.testing.assert_allclose(np.asarray(out), mat @ B, **TOL)
 
 
-@pytest.mark.parametrize("op", ["max", "min"])
-def test_reduce_part_batched_scan_groups(op):
-    # Round 4: the minmax kernel scans the whole G-chunk window in ONE
-    # flag-based segmented scan; interpret mode normally runs G=1, so
-    # force G>1 to exercise cross-chunk runs, sentinel gaps, and the
-    # hop-over-boundary flag logic on CPU.
-    from gespmm_tpu.kernels.spmm_stream import _reduce_part
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("layout", [
+    dict(col_tile=8, rows_per_block=8, chunk_nnz=8, part_rows=40),
+    dict(col_tile=8, rows_per_block=8, chunk_nnz=8, part_rows=16),
+    dict(col_tile=1 << 20, chunk_nnz=8),
+])
+def test_reduce_part_matches_dense(op, layout):
+    # The XLA segment reduce over the slot layout: chunk boundaries, tile
+    # boundaries (col_tile=8), part boundaries (part_rows=16), pad slots,
+    # and exact tie counts for max/min.
+    from gespmm_tpu.kernels.spmm_stream import _gather_part, _reduce_part
 
     csr, mat = random_csr(40, 32, density=0.25, seed=33, binary=True)
-    # fold=1: this test forces arbitrary scan groups, which the folded
-    # stream layout constrains (tests/test_fold.py covers folding).
-    adj = Adjacency.from_csr(csr, plan=True, col_tile=8, rows_per_block=8,
-                             chunk_nnz=8, part_rows=40, fold=1)
-    part = adj.plan.parts[0]
+    plan = build_tiled_plan(csr, minmax_aligned=False, **layout)
     rng = np.random.default_rng(33)
     B = jnp.asarray(
         np.round(rng.standard_normal((32, 8)) * 2).astype(np.float32) / 2
     )
-    from gespmm_tpu.kernels.spmm_stream import _gather_part
-
-    contrib = _gather_part(part, None, B.astype(jnp.float32))
     dense = np.asarray(mat.toarray() != 0)
     c = np.where(dense[:, :, None], np.asarray(B)[None], np.nan)
-    red = np.nanmax if op == "max" else np.nanmin
-    with np.errstate(all="ignore"):
-        golden = red(c, axis=1)
-    golden_ties = np.nansum((c == golden[:, None, :]).astype(np.float32), 1)
-    C = part.num_chunks
-    groups = [g for g in (1, 2, 4) if C % g == 0]
-    assert len(groups) > 1, f"need a multi-group-divisible chunk count ({C})"
-    for g in groups:
-        out, ties = _reduce_part(
+    outs, ties = [], []
+    for part in plan.parts:
+        contrib = _gather_part(part, None, B)
+        res = _reduce_part(
             contrib, part.local_rows, part.row_start, part.m_pad,
-            part.rows_per_block, 8, "trilo", True, op=op, want_ties=True,
-            max_run=part.max_run, force_group=g,
+            part.rows_per_block, op=op, want_ties=op != "sum",
         )
-        got = np.asarray(out)[:40]
-        got = np.where(np.isfinite(got), got, np.nan)
-        exp = golden
-        np.testing.assert_allclose(
-            np.where(np.isnan(got), 0, got),
-            np.where(np.isnan(exp), 0, exp), rtol=1e-6, atol=1e-6,
-            err_msg=f"group={g}",
-        )
-        np.testing.assert_array_equal(
-            np.asarray(ties)[:40], golden_ties, err_msg=f"group={g}"
-        )
+        out, t = res if op != "sum" else (res, None)
+        assert out.shape == (part.m_pad, 8)
+        outs.append(np.asarray(out)[: part.m_part])
+        if t is not None:
+            ties.append(np.asarray(t)[: part.m_part])
+    got = np.concatenate(outs)
+    with np.errstate(all="ignore"):
+        if op == "sum":
+            np.testing.assert_allclose(got, np.nansum(c, axis=1),
+                                       rtol=1e-6, atol=1e-6)
+            return
+        golden = (np.nanmax if op == "max" else np.nanmin)(c, axis=1)
+    empty = ~dense.any(axis=1)
+    ident = -np.inf if op == "max" else np.inf
+    assert np.all(got[empty] == ident)
+    np.testing.assert_array_equal(got[~empty], golden[~empty])
+    golden_ties = np.nansum((c == golden[:, None, :]).astype(np.float32), 1)
+    np.testing.assert_array_equal(np.concatenate(ties), golden_ties)
 
 
 def test_adjacency_forward_only_plan():

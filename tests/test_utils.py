@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from gespmm_tpu.ops.spmm import Adjacency, spmm
 from gespmm_tpu.utils import profiling, timing
@@ -10,10 +11,17 @@ from tests.conftest import random_csr
 
 
 def test_benchmark_returns_sane_result():
+    # Off the GPU every timing entry point refuses to run; the summary
+    # arithmetic is checked on synthetic samples.
     f = jax.jit(lambda x: x * 2.0)
     x = jnp.ones((128, 128))
-    r = timing.benchmark(lambda: f(x), iters=30)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        timing.benchmark(lambda: f(x), iters=30)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        timing.benchmark_chained(lambda v: v * 0.5, x, iters=2)
+    r = timing._summary([3e-3, 1e-3, 2e-3], 1)
     assert r.mean_s > 0 and r.best_s <= r.median_s
+    assert r.median_s == 2e-3 and r.iters == 3
     assert abs(r.gflops(1e9 * r.mean_s) - 1.0) < 1e-9  # definition check
 
 
@@ -26,10 +34,29 @@ def test_op_cost_table():
 
 
 def test_spmm_roofline_math():
-    r = profiling.spmm_roofline(nnz=1000, m=100, k=128, measured_s=1e-3)
+    kind = "NVIDIA H100 80GB HBM3"
+    r = profiling.spmm_roofline(nnz=1000, m=100, k=128, measured_s=1e-3,
+                                device_kind=kind)
     assert r["bytes_moved"] == 1000 * 128 * 4 + 1000 * 8 + 100 * 128 * 4
+    assert r["speed_of_light_s"] == r["bytes_moved"] / 3.35e12
     assert 0 < r["fraction_of_roofline"] < 1
     assert r["achieved_gflops"] > 0
+
+
+@pytest.mark.parametrize("kind", [None, "NVIDIA A100-SXM4-80GB", "NVIDIA H100 PCIe"])
+def test_roofline_unknown_device_kind_raises(kind):
+    # None resolves to this machine's first device (the CPU here), which
+    # has no entry: an unknown device is an error, never a default.
+    with pytest.raises(ValueError, match="no published peaks"):
+        profiling.spmm_roofline(nnz=10, m=4, k=8, measured_s=1e-3,
+                                device_kind=kind)
+
+
+def test_peaks_table_h100_entry():
+    p = profiling.device_peaks("NVIDIA H100 80GB HBM3")
+    assert p["hbm_bytes_per_s"] == 3.35e12 and p["l2_bytes"] == 50 * 2**20
+    assert p["bf16_flops"] == 989e12 and p["tf32_flops"] == 495e12
+    assert p["fp32_flops"] == 67e12 and "data sheet" in p["source"]
 
 
 def test_spmm_bf16():
@@ -104,12 +131,15 @@ def test_bench_rectangular_graph_cpu():
     from gespmm_tpu.bench.spmm_bench import bench_graph
 
     row, results = bench_graph(
-        "rect512x128-4", [8], iters=3, methods=("xla", "tiled"),
+        "rect512x128-4", [8], iters=0, methods=("xla", "tiled"),
         validate=True,
     )
     assert row["m"] == 512 and row["n"] == 128
     for key, v in results.items():
         assert "error" not in v, (key, v)
+    # Timing is GPU-only: off the card the sweep refuses to time.
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        bench_graph("rect512x128-4", [8], iters=3, methods=("xla",))
 
 
 def test_append_csv_field_merge():
