@@ -30,8 +30,9 @@ def main(argv=None):
     p.add_argument("--no-self-loop", dest="self_loop", action="store_false")
     p.add_argument("--method", default="auto",
                    choices=["auto", "xla", "pallas", "tiled"])
-    p.add_argument("--plan", action="store_true", default=True)
-    p.add_argument("--no-plan", dest="plan", action="store_false")
+    p.add_argument("--plan", action="store_true", default=False,
+                   help="build the tiled slot layout (needed by "
+                        "method='tiled', the fused attention chain)")
     p.add_argument(
         "--impl", default="ours", choices=["ours", "stock"],
         help="'stock' trains the identical model on stock JAX ops "

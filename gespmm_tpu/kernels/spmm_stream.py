@@ -4,9 +4,10 @@ The plan (`sparse/partition.build_tiled_plan`) sorts each row part's edges by
 (column tile, row) and pads them into chunks of E slots whose rows fit a
 window of R. The gather phase takes the rows of ``B`` that feed each slot,
 one `take` per column tile, scaled by the edge values. The reduce phase folds
-the slots into the part's output rows with `jax.ops.segment_sum` (or
-`segment_max` / `segment_min`), keyed by ``row_start[c] + local_rows[c, j]``;
-pad slots carry the key ``m_pad`` and are dropped.
+the slots into the part's output rows with `jax.ops.segment_sum` (in two
+levels, runs then rows: `_sum_by_runs`) or `segment_max` / `segment_min`,
+keyed by ``row_start[c] + local_rows[c, j]``; pad slots carry the key
+``m_pad`` and are dropped.
 
 Every per-edge composition in the package that works in slot order rides
 `_reduce_part`: the tiled SpMM here, the edge softmax normalizers
@@ -34,8 +35,9 @@ Array = jax.Array
 def _stream_budget() -> int:
     """Byte cap on one materialized (slots x K) gather stream.
 
-    A quarter of the device's memory limit, leaving room for the operands,
-    the output and the caller's live buffers. Backends that report no
+    A quarter of the device's memory limit: the stream and its per-run
+    partial sums (`_sum_by_runs`, the same size) take half, leaving room
+    for the operands, the output and the caller's live buffers. Backends that report no
     memory statistics (the CPU) get 4 GiB.
     """
     stats = jax.devices()[0].memory_stats()
@@ -60,6 +62,29 @@ def _slot_segments(local_rows: Array, row_start: Array, rows_per_block: int,
     return jnp.where(local_rows < rows_per_block, seg, m_pad).reshape(-1)
 
 
+def _sum_by_runs(c: Array, local_rows: Array, seg: Array, m_pad: int):
+    """Sum slots into rows in two levels, for float32 accuracy.
+
+    A row's slots lie in runs of one chunk (rows ascend within a chunk), and
+    a hub row's runs lie in many chunks and column tiles. One unsorted
+    scatter-add over all slots sums a row of d nonzeros in arbitrary order,
+    with error growing with d. Here each run is summed first, by a sorted
+    segment-sum keyed by the run's first slot, and only the per-run
+    partials (at most one per chunk) are scattered into the rows.
+    """
+    C, E = local_rows.shape
+    pos = jnp.arange(E, dtype=jnp.int32)
+    first = jnp.concatenate(
+        [jnp.ones((C, 1), bool), local_rows[:, 1:] != local_rows[:, :-1]],
+        axis=1,
+    )
+    start = jax.lax.cummax(jnp.where(first, pos, 0), axis=1)
+    run = (jnp.arange(C, dtype=jnp.int32)[:, None] * E + start).reshape(-1)
+    partial = jax.ops.segment_sum(c, run, num_segments=C * E,
+                                  indices_are_sorted=True)
+    return jax.ops.segment_sum(partial, seg, num_segments=m_pad)
+
+
 @functools.partial(
     jax.jit, static_argnames=("m_pad", "rows_per_block", "op", "want_ties")
 )
@@ -82,7 +107,7 @@ def _reduce_part(
     seg = _slot_segments(local_rows, row_start, rows_per_block, m_pad)
     c = contrib.astype(jnp.float32)
     if op == "sum":
-        return jax.ops.segment_sum(c, seg, num_segments=m_pad)
+        return _sum_by_runs(c, local_rows, seg, m_pad)
     reduce = jax.ops.segment_max if op == "max" else jax.ops.segment_min
     out = reduce(c, seg, num_segments=m_pad)
     if not want_ties:

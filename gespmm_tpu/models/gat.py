@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 from gespmm_tpu.models.common import dense_init, dropout, glorot
 from gespmm_tpu.ops.graph import edge_softmax
-from gespmm_tpu.ops.spmm import Adjacency, spmm
+from gespmm_tpu.ops.spmm import Adjacency, fused_attention, spmm
 
 Array = jax.Array
 
@@ -67,21 +67,13 @@ def gat_layer_apply(
     # Additive attention decomposes into per-node terms; the edge logits
     # are src_score[row] + dst_score[col] — expressed directly (two
     # gathers + per-node segment-sum gradients) rather than as the
-    # equivalent rank-2 SDDMM, whose generic VJP runs two K=2 SpMMs
-    # (measured ~6 ms/layer on pubmed).
+    # equivalent rank-2 SDDMM, whose generic VJP runs two K=2 SpMMs.
     src_score = h @ p["a_src"]  # (n,)
     dst_score = h @ p["a_dst"]
-    from gespmm_tpu.sparse.partition import TiledSpmmPlan
-
-    if (
-        method in ("auto", "tiled")
-        and isinstance(adj.plan, TiledSpmmPlan)
-        and isinstance(adj.plan_t, TiledSpmmPlan)
-    ):
+    if fused_attention(method, adj):
         # Fused slot-space chain (kernels/gat_fused): 2 stream passes
-        # forward, 2 backward, zero nnz-order permutes — replaces the
-        # separate logits/softmax/weighted-SpMM ops (the round-2 GAT
-        # wall was their CSR<->slot layout churn).
+        # forward, 2 backward, zero nnz-order permutes in place of the
+        # separate logits/softmax/weighted-SpMM ops.
         from gespmm_tpu.kernels.gat_fused import gat_attention_aggregate
 
         out = gat_attention_aggregate(
@@ -90,6 +82,7 @@ def gat_layer_apply(
         return out + p["b"]
     from gespmm_tpu.ops.graph import additive_attention_logits
 
+    adj = adj.without_plans()
     logits = additive_attention_logits(adj, src_score, dst_score)
     logits = jax.nn.leaky_relu(logits, negative_slope)
     alpha = edge_softmax(adj, logits)
@@ -109,15 +102,9 @@ def _gat_layer_multihead(
     """Multi-head layer: per-head fused attention over the head's slice
     of the shared projection; heads merge by concat (hidden layers) or
     mean (output layer), DGL GATConv semantics."""
-    from gespmm_tpu.sparse.partition import TiledSpmmPlan
-
     heads, dh = p["a_src"].shape
     h = x @ p["w"]  # (n, heads*dh)
-    use_fused = (
-        method in ("auto", "tiled")
-        and isinstance(adj.plan, TiledSpmmPlan)
-        and isinstance(adj.plan_t, TiledSpmmPlan)
-    )
+    use_fused = fused_attention(method, adj)
     n = h.shape[0]
     # Per-head scores, all heads at once: (n, H).
     src = jnp.einsum("nhd,hd->nh", h.reshape(n, heads, dh), p["a_src"])
@@ -133,6 +120,7 @@ def _gat_layer_multihead(
     else:
         from gespmm_tpu.ops.graph import additive_attention_logits
 
+        adj = adj.without_plans()
         outs = []
         for hd in range(heads):
             hh = h[:, hd * dh : (hd + 1) * dh]

@@ -196,25 +196,22 @@ def attention_aggregate(
     pattern — the full dot-product attention layer (SDDMM scores +
     edge softmax + weighted aggregate) in one call.
 
-    With tiled plans and method "auto"/"tiled" this runs the fused
-    slot-space kernel (`kernels/gat_fused.dot_attention_aggregate`): 2
+    Where `ops/spmm.fused_attention` chooses it, this runs the fused
+    slot-space chain (`kernels/gat_fused.dot_attention_aggregate`): 2
     stream passes per direction, softmax denominator folded into the
     aggregate, no edge-order permutes.  Otherwise it composes the three
-    ops.  ``act`` is identity unless ``negative_slope`` is given
-    (leaky-relu, GAT-style).
+    ops on the XLA formulations.  ``act`` is identity unless
+    ``negative_slope`` is given (leaky-relu, GAT-style).
     """
-    from gespmm_tpu.sparse.partition import TiledSpmmPlan
+    from gespmm_tpu.ops.spmm import fused_attention
 
-    if (
-        method in ("auto", "tiled")
-        and isinstance(adj.plan, TiledSpmmPlan)
-        and isinstance(adj.plan_t, TiledSpmmPlan)
-    ):
+    if fused_attention(method, adj):
         from gespmm_tpu.kernels.gat_fused import dot_attention_aggregate
 
         return dot_attention_aggregate(
             adj, q, k, v, negative_slope=negative_slope
         )
+    adj = adj.without_plans()
     scores = sddmm(adj, q, k, method=method)
     if negative_slope is not None:
         scores = jax.nn.leaky_relu(scores, negative_slope)

@@ -7,9 +7,14 @@ holding a BCOO/BCSR matrix route through our kernels (and our ops return
 matrices stock code can consume), and the benchmark harness uses
 `bcoo_dot_general` as the "stock framework" baseline tier (the role stock
 DGL/PyG play in `gcn_pyg.py` vs `gcn_custom.py`).
+
+`cusparse_spmm` is the library baseline of the reference's benchmark
+(cuSPARSE's CSR SpMM, `spmm_test.cu:714-762`), reached through BCSR.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +65,54 @@ def csr_to_bcoo(csr: CSR):
 def bcoo_spmm_baseline(csr: CSR, B: Array) -> Array:
     """Stock-library SpMM tier: BCOO @ dense via bcoo_dot_general."""
     return csr_to_bcoo(csr) @ B
+
+
+def csr_to_bcsr(csr: CSR):
+    """Our CSR -> jax.experimental.sparse.BCSR (float32 values, int32
+    indices: the types cuSPARSE's CSR SpMM takes)."""
+    from jax.experimental import sparse as jsparse
+
+    data = (
+        jnp.ones((csr.nnz,), jnp.float32) if csr.data is None
+        else csr.data.astype(jnp.float32)
+    )
+    return jsparse.BCSR(
+        (data, csr.indices.astype(jnp.int32), csr.indptr.astype(jnp.int32)),
+        shape=csr.shape,
+    )
+
+
+@contextlib.contextmanager
+def cusparse_lowering():
+    """Lower BCSR/BCOO matmuls to cuSPARSE while the block is open.
+
+    Without ``jax_bcoo_cusparse_lowering`` JAX lowers them to XLA gathers
+    on the GPU too.  JAX reads the flag when it lowers and does not key its
+    jit cache on it, so compile inside the block.
+    """
+    prev = jax.config.jax_bcoo_cusparse_lowering
+    jax.config.update("jax_bcoo_cusparse_lowering", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_bcoo_cusparse_lowering", prev)
+
+
+def cusparse_spmm(bcsr, B: Array):
+    """``bcsr @ B`` through cuSPARSE's CSR SpMM, compiled for B's shape.
+
+    Returns the compiled function, called as ``f(bcsr, B)``.  Raises when
+    the compiled program holds no cuSPARSE call (no GPU, or a lowering
+    that fell back to XLA), so a timing labelled cuSPARSE is cuSPARSE.
+    """
+    with cusparse_lowering():
+        compiled = jax.jit(lambda M, b: M @ b).lower(bcsr, B).compile()
+    if 'custom_call_target="cusparse' not in compiled.as_text():
+        raise RuntimeError(
+            "BCSR @ dense did not lower to cuSPARSE on the "
+            f"{jax.default_backend()!r} backend"
+        )
+    return compiled
 
 
 @jax.tree_util.register_pytree_node_class

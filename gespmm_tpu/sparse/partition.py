@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from gespmm_tpu.utils.profiling import PEAKS, TARGET_DEVICE_KIND
+
 
 # ---------------------------------------------------------------------------
 # Tiled plan: edges sorted by (column tile, row), packed in chunks of E slots
@@ -126,10 +128,10 @@ class TiledSpmmPlan:
         return (total - self.nnz) / max(total, 1)
 
 
-# Bytes of B one column tile may hold by default: half of the H100's 50 MB
-# L2 cache (NVIDIA H100 data sheet), so a tile's gathered rows stay
-# L2-resident while its slots stream past.
-TILE_TABLE_BYTES = 25 << 20
+# Bytes of B one column tile may hold by default: half the L2 cache of the
+# card the defaults are sized for (`utils/profiling`), so a tile's
+# gathered rows stay L2-resident while its slots stream past.
+TILE_TABLE_BYTES = PEAKS[TARGET_DEVICE_KIND]["l2_bytes"] // 2
 
 
 def _align_down(x: int, a: int) -> int:

@@ -243,3 +243,48 @@ def test_fused_head_batched_matches_per_head():
             np.asarray(a), np.asarray(b), rtol=2e-4, atol=2e-4,
             err_msg=f"grad_{name}",
         )
+
+
+@pytest.mark.parametrize("planned", [False, True])
+@pytest.mark.parametrize("method", ["auto", "tiled", "xla"])
+@pytest.mark.parametrize("backend", ["gpu", "cpu"])
+def test_fused_attention_rule(backend, method, planned, monkeypatch):
+    from gespmm_tpu.ops.spmm import fused_attention
+
+    csr, _ = random_csr(30, 30, density=0.15, seed=31)
+    adj = Adjacency.from_csr(csr, plan=planned)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    # "tiled" asks for the fused chain; "auto" takes it off the GPU only
+    # (on the GPU the unfused composition measured faster).
+    want = planned and (method == "tiled"
+                        or (method == "auto" and backend != "gpu"))
+    assert fused_attention(method, adj) == want
+    assert fused_attention(method, adj.without_plans()) is False
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_gat_auto_on_gpu_runs_unfused_without_plans(heads, monkeypatch):
+    import gespmm_tpu.kernels.gat_fused as gf
+    from gespmm_tpu.models.gat import gat_layer_apply, gat_layer_init
+
+    csr, _ = random_csr(36, 36, density=0.15, seed=37)
+    adj = Adjacency.from_csr(csr, plan=True, col_tile=1 << 20,
+                             rows_per_block=8, chunk_nnz=8)
+    x = jnp.asarray(np.random.default_rng(37).standard_normal((36, 6)),
+                    jnp.float32)
+    p = gat_layer_init(jax.random.PRNGKey(0), 6, 4, heads=heads)
+    want = gat_layer_apply(p, adj.without_plans(), x, method="xla")
+
+    def no_fused(*a, **k):
+        raise AssertionError("auto took the fused chain on the GPU")
+
+    def no_slot_reduce(*a, **k):
+        raise AssertionError("the unfused chain used the tiled plan")
+
+    monkeypatch.setattr(gf, "gat_attention_aggregate", no_fused)
+    import gespmm_tpu.kernels.spmm_stream as ss
+
+    monkeypatch.setattr(ss, "edge_segment_reduce", no_slot_reduce)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    got = gat_layer_apply(p, adj, x, method="auto")
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)

@@ -5,7 +5,10 @@ import numpy as np
 import pytest
 
 from gespmm_tpu.ops import reference as ref
-from gespmm_tpu.ops.interop import bcoo_spmm_baseline, csr_from_bcoo, csr_to_bcoo
+from gespmm_tpu.ops.interop import (
+    bcoo_spmm_baseline, csr_from_bcoo, csr_to_bcoo, csr_to_bcsr,
+    cusparse_lowering, cusparse_spmm,
+)
 from gespmm_tpu.sparse.formats import expand_indptr
 from tests.conftest import random_csr
 
@@ -86,3 +89,35 @@ def test_adjacency_matrix_quacks_like_bcoo():
     A2 = AdjacencyMatrix.from_bcoo(bcoo, plan=False)
     np.testing.assert_allclose(np.asarray(A2 @ x), mat @ np.asarray(x),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_csr_to_bcsr_matches_scipy(binary):
+    csr, mat = random_csr(26, 19, density=0.2, seed=5, binary=binary)
+    M = csr_to_bcsr(csr)
+    assert M.data.dtype == jnp.float32 and M.indices.dtype == jnp.int32
+    np.testing.assert_allclose(np.asarray(M.todense()), mat.toarray(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("start", [False, True])
+def test_cusparse_lowering_restores_flag(start):
+    import jax
+
+    jax.config.update("jax_bcoo_cusparse_lowering", start)
+    try:
+        with pytest.raises(ZeroDivisionError):
+            with cusparse_lowering():
+                assert jax.config.jax_bcoo_cusparse_lowering is True
+                1 / 0
+        assert jax.config.jax_bcoo_cusparse_lowering is start
+    finally:
+        jax.config.update("jax_bcoo_cusparse_lowering", False)
+
+
+def test_cusparse_spmm_refuses_a_program_without_cusparse():
+    # On the CPU BCSR @ dense lowers to the CPU library, not cuSPARSE: a
+    # time labelled cuSPARSE must never come from it.
+    csr, _ = random_csr(16, 16, density=0.2, seed=6)
+    with pytest.raises(RuntimeError, match="cuSPARSE"):
+        cusparse_spmm(csr_to_bcsr(csr), jnp.ones((16, 4), jnp.float32))

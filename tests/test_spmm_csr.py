@@ -152,25 +152,59 @@ def test_spmm_csr_refuses_compiled_off_gpu():
                     jnp.ones((8, 4)), 8)
 
 
+@pytest.mark.parametrize("degree", [4.0, 14.5, 30.0])
 @pytest.mark.parametrize("K", [40, 256])
 @pytest.mark.parametrize("reduce", ["sum", "max", "min"])
 @pytest.mark.parametrize("with_plan", [False, True])
 @pytest.mark.parametrize("backend", ["gpu", "cpu"])
 def test_resolve_method_never_interprets(backend, with_plan, reduce, K,
-                                         monkeypatch):
+                                         degree, monkeypatch):
     A = _matrix(24, 24, seed=3, binary=True)
     adj = Adjacency.from_csr(csr_from_scipy(A.astype(np.float32)),
                              plan=with_plan)
     monkeypatch.setattr(jax, "default_backend", lambda: backend)
-    got = spmm_mod._resolve_method("auto", adj.plan, K, reduce)
+    got = spmm_mod._resolve_method("auto", adj.plan, K, reduce, degree)
     if backend == "gpu" and reduce == "sum":
-        # The wide sums go to the Triton kernel, compiled (spmm_csr never
-        # chooses interpret itself; it raises off the GPU instead).
-        assert got == ("pallas" if K >= spmm_mod.CSR_KERNEL_MIN_K
-                       else "xla")
+        # Wide B or wide rows go to the Triton kernel, compiled (spmm_csr
+        # never chooses interpret itself; it raises off the GPU instead).
+        wide = (K >= spmm_mod.CSR_KERNEL_MIN_K
+                or degree >= spmm_mod.CSR_KERNEL_MIN_DEGREE)
+        assert got == ("pallas" if wide else "xla")
     else:
         assert got == ("tiled" if with_plan else "xla")
-    assert spmm_mod._resolve_method("xla", adj.plan, K, reduce) == "xla"
+    assert spmm_mod._resolve_method("xla", adj.plan, K, reduce,
+                                    degree) == "xla"
+
+
+@pytest.mark.parametrize("deg", [3, 40])
+@pytest.mark.parametrize("K", [8, 300])
+def test_auto_on_gpu_routes_by_width_and_degree(K, deg, monkeypatch):
+    # The degree the dispatcher sees is the matrix's own nnz / rows, for
+    # the forward (CSR) and the backward (the CSC of the transpose).
+    m = 64
+    rng = np.random.default_rng(deg)
+    cols = np.concatenate([rng.choice(m, deg, replace=False)
+                           for _ in range(m)])
+    A = sp.csr_matrix((np.ones(m * deg, np.float32), cols,
+                       np.arange(0, m * deg + 1, deg)), shape=(m, m))
+    adj = Adjacency.from_csr(csr_from_scipy(A))
+    B = jnp.asarray(rng.standard_normal((m, K)), jnp.float32)
+    seen, real = [], sc.spmm_csr
+
+    def fake_csr(indptr, indices, data, B, m, interpret=False):
+        seen.append(indices.shape[0] / (indptr.shape[0] - 1))
+        return real(indptr, indices, data, B, m, interpret=True)
+
+    monkeypatch.setattr(sc, "spmm_csr", fake_csr)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    out, grad = jax.value_and_grad(
+        lambda b: jnp.sum(spmm(adj, b, method="auto") ** 2))(B)
+    wide = K >= spmm_mod.CSR_KERNEL_MIN_K or deg >= (
+        spmm_mod.CSR_KERNEL_MIN_DEGREE)
+    assert seen == ([deg, deg] if wide else [])
+    ref = A.astype(np.float64) @ np.asarray(B, np.float64)
+    assert abs(float(out) - float((ref ** 2).sum())) <= 1e-4 * float(
+        (ref ** 2).sum())
 
 
 @pytest.mark.gpu
@@ -237,3 +271,14 @@ def test_chip_smoke_refuses_without_gpu():
     with pytest.raises(SystemExit) as e:
         cs.setup()
     assert "needs a GPU" in str(e.value)
+
+
+def test_four_card_phase_matches_unsharded_on_virtual_mesh():
+    # `chip_smoke.py --four` on four virtual CPU devices: the halo-tier
+    # GCN on a 4-way mesh against the unsharded single-device XLA run.
+    from gespmm_tpu.utils.datasets import planetoid_style_dataset
+
+    cs = _load_chip_smoke()
+    ds = planetoid_style_dataset("cl1500-6", feat_dim=cs.ARXIV_FEATURES,
+                                 num_classes=cs.ARXIV_CLASSES)
+    assert cs.four_phase(ds, "cpu", steps=3) == 4

@@ -524,3 +524,32 @@ def test_adjacency_forward_only_plan():
         g2 = jax.grad(loss_dense)(B)
         np.testing.assert_allclose(np.asarray(g1), np.asarray(g2),
                                    rtol=1e-3, atol=1e-4, err_msg=reduce)
+
+
+@pytest.mark.parametrize("layout", ["hub", "shuffled", "padded"])
+def test_reduce_part_sum_is_float32_accurate(layout):
+    # A row spread over many chunks (a hub) sums its per-chunk runs first,
+    # so its error stays near one float32 rounding of the row; rows that
+    # repeat non-adjacently inside a chunk must still sum exactly once.
+    from gespmm_tpu.kernels.spmm_stream import _reduce_part
+
+    C, E, K, R = 512, 256, 8, 6
+    rng = np.random.default_rng(11)
+    if layout == "hub":
+        lr = np.zeros((C, E), np.int32)
+        lr[:, -3:] = 1
+    else:
+        lr = rng.integers(0, R, size=(C, E)).astype(np.int32)
+        if layout == "padded":
+            lr = np.sort(lr, axis=1)
+            lr[:, E - 40:] = R  # pad sentinel: dropped
+    rs = rng.integers(0, 3, size=C).astype(np.int32)
+    c = (rng.standard_normal((C * E, K)) + 3).astype(np.float32)
+    m_pad = R + 3
+    out = _reduce_part(jnp.asarray(c), jnp.asarray(lr), jnp.asarray(rs),
+                       m_pad=m_pad, rows_per_block=R)
+    seg = np.where(lr < R, rs[:, None] + lr, m_pad).reshape(-1)
+    ref = np.zeros((m_pad + 1, K))
+    np.add.at(ref, seg, c.astype(np.float64))
+    err = np.abs(np.asarray(out) - ref[:m_pad]).max() / np.abs(ref).max()
+    assert err <= (1e-6 if layout == "hub" else 1e-5)
